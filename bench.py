@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Headline benchmark: ms/frame and rays/s at 1440p 1spp on one TPU chip.
+"""Headline benchmark: ms/frame and rays/s at 1440p 1spp on one GPU.
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
 
@@ -12,7 +12,6 @@ Configurable via env:
   BENCH_DEPTH       max path depth     (default 5, ≙ reference Config.json)
   BENCH_FRAMES      timed frames       (default 8)
   BENCH_BOXES       procedural boxes   (default 600 ≈ 7.5k tris)
-  BENCH_PALLAS      1|0 force/disable the Pallas visit kernel (default auto)
   BENCH_STAGES      1 = also print the per-stage breakdown (stderr)
   BENCH_GRAD        1 = measure backward/forward ratio instead of ms/frame
 """
@@ -26,7 +25,11 @@ import time
 
 def main() -> int:
     import jax
-    import jax.numpy as jnp
+
+    from lumenrenderer_tpu.utils import compile_cache, device
+
+    device.require_gpu()          # no CPU fallback: numbers name their card
+    compile_cache.enable()
 
     w = int(os.environ.get("BENCH_W", 2560))
     h = int(os.environ.get("BENCH_H", 1440))
@@ -55,11 +58,7 @@ def main() -> int:
     cluster = int(os.environ.get("BENCH_CLUSTER", 128))
     mv = os.environ.get("BENCH_MV", "auto")
     mv = int(mv) if mv != "auto" else mv
-    use_pallas = {"1": True, "0": False}.get(
-        os.environ.get("BENCH_PALLAS", ""), "auto"
-    )
-    r = Renderer(sc, cfg, accel=accel, cluster_size=cluster, max_visits=mv,
-                 use_pallas=use_pallas)
+    r = Renderer(sc, cfg, accel=accel, cluster_size=cluster, max_visits=mv)
 
     if os.environ.get("BENCH_GRAD") == "1":
         return bench_grad(r, sc, cam, cfg, frames)
@@ -76,7 +75,7 @@ def main() -> int:
     rays_per_s = w * h / dt  # primary paths (1spp) per second
     baseline_ms = 1000.0 / 30.0
     # visit-list truncation flag: the headline number must not silently
-    # drop hits (VERDICT r2 weak #2)
+    # drop hits
     overflow = bool(aux["overflow"]) if "overflow" in aux else None
     result = {
         "metric": (
@@ -88,7 +87,7 @@ def main() -> int:
         "vs_baseline": round(baseline_ms / ms, 3),
         "rays_per_s": round(rays_per_s),
         "overflow": overflow,
-        "device": str(jax.devices()[0]),
+        "device": device.describe(),
     }
     if os.environ.get("BENCH_STAGES") == "1":
         for k, v in r.profile_stages(cam, reps=3).items():
@@ -98,6 +97,8 @@ def main() -> int:
 
 
 def bench_grad(r, sc, cam, cfg, frames: int) -> int:
+    from lumenrenderer_tpu.utils import device
+
     """Backward/forward wall ratio through the full frame (BASELINE's
     differentiable-rendering metric): grad of mean image luminance w.r.t.
     every material's emissive radiance (the differentiable light path)."""
@@ -109,8 +110,8 @@ def bench_grad(r, sc, cam, cfg, frames: int) -> int:
     from lumenrenderer_tpu.integrator import wavefront
 
     key = jax.random.PRNGKey(0)
-    # remat: recompute depths >= 1 in backward — 1440p residuals otherwise
-    # exceed HBM (measured r4: ~dozens of 56 MB (N,3) temps per depth)
+    # remat: recompute depths >= 1 in backward — 1440p residuals are
+    # ~dozens of 56 MB (N,3) temps per depth
     cfg = dataclasses.replace(cfg, remat=True)
 
     def fwd(em):
@@ -143,6 +144,7 @@ def bench_grad(r, sc, cam, cfg, frames: int) -> int:
         "forward_ms": round(t_f, 2),
         "backward_ms": round(t_g, 2),
         "grads_finite": finite,
+        "device": device.describe(),
     }
     print(json.dumps(result))
     return 0

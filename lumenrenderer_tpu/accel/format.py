@@ -14,11 +14,12 @@ traversal's stack bound and leaf loop are compile-time constants.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 
+from ..utils import struct
 
-@flax.struct.dataclass
+
+@struct.dataclass
 class BVH:
     node_lo: jnp.ndarray   # (N,3) f32
     node_hi: jnp.ndarray   # (N,3) f32
@@ -28,8 +29,8 @@ class BVH:
     tri_e1: jnp.ndarray    # (S,3)
     tri_e2: jnp.ndarray    # (S,3)
     tri_id: jnp.ndarray    # (S,) original tri index, -1 = padding
-    leaf_size: int = flax.struct.field(pytree_node=False)
-    max_depth: int = flax.struct.field(pytree_node=False)
+    leaf_size: int = struct.field(static=True)
+    max_depth: int = struct.field(static=True)
 
     @property
     def num_nodes(self) -> int:

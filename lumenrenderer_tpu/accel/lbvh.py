@@ -1,7 +1,7 @@
 """LBVH build: Morton-sorted implicit binary tree, fully vectorized.
 
-TPU-native replacement for OptiX GAS builds
-(`Framework/OptixWrapper.cpp:46-131`). Design rationale (TPU-first, not a
+JAX replacement for OptiX GAS builds
+(`Framework/OptixWrapper.cpp:46-131`). Design rationale (designed for XLA, not a
 CUDA translation):
 
 - Primitives are sorted by the Morton code of their AABB centroid

@@ -1,6 +1,6 @@
 """Morton (Z-order) codes for LBVH construction.
 
-TPU-native replacement for the spatial-sorting role OptiX's internal BVH
+JAX replacement for the spatial-sorting role OptiX's internal BVH
 builder plays in the reference (`OptixWrapper::BuildGeometryAccelerationStructure`,
 `Framework/OptixWrapper.cpp:46-78`). 30-bit codes (10 bits/axis), fully
 vectorized integer ops on the VPU.

@@ -1,11 +1,11 @@
 """Host-side binned-SAH BVH builder (numpy; C++ fast path optional).
 
-TPU-native design decision: for *static* scenes the BVH is built once on the
+Design decision: for *static* scenes the BVH is built once on the
 host at scene load (like the reference builds its GAS at `CreatePrimitive`
 time, `Framework/WaveFrontRenderer.cpp:1148-1252`) — so build cost is off the
-frame path and tree *quality* is what matters: traversal on TPU is a lockstep
-loop whose iteration count is the per-batch max, so SAH's lower worst-case
-node counts translate directly into frame time. The device-side Morton LBVH
+frame path and tree *quality* is what matters: batched traversal is a
+lockstep loop whose iteration count is the per-batch max, so SAH's lower
+worst-case node counts translate directly into frame time. The device-side Morton LBVH
 (`accel/lbvh.py`) remains for dynamically deforming geometry.
 
 Binned SAH (16 bins, largest centroid axis, fallback to object median) with
@@ -136,17 +136,37 @@ def build_sah_boxes(lo_t: np.ndarray, hi_t: np.ndarray, leaf_size: int = 4):
     )
 
 
+_native_missing_logged = False
+
+
+def build_sah_fast(tri_pos: np.ndarray, leaf_size: int):
+    """`build_sah_arrays` through the native builder (`make -C native`) when
+    it is built, else the numpy one; logs which ran."""
+    global _native_missing_logged
+    from ..utils import log as log_mod
+
+    try:
+        from ..native import bvh_native
+
+        out = bvh_native.build_sah(tri_pos, leaf_size)
+    except (ImportError, OSError) as e:
+        if not _native_missing_logged:
+            log_mod.core().warning(
+                "native SAH builder unavailable (%s); using the numpy "
+                "builder", e)
+            _native_missing_logged = True
+        return build_sah_arrays(tri_pos, leaf_size)
+    log_mod.core().info("SAH build: native builder, %d triangles",
+                        tri_pos.shape[0])
+    return out
+
+
 def build_sah(tri_pos_jnp, leaf_size: int = 4) -> BVH:
     """Build a binned-SAH BVH from (T,3,3) triangles (device or numpy)."""
     import jax.numpy as jnp
 
     tri_pos = np.asarray(tri_pos_jnp, np.float32)
-    try:
-        from ..native import bvh_native
-
-        nlo, nhi, c0, c1, order, md = bvh_native.build_sah(tri_pos, leaf_size)
-    except Exception:
-        nlo, nhi, c0, c1, order, md = build_sah_arrays(tri_pos, leaf_size)
+    nlo, nhi, c0, c1, order, md = build_sah_fast(tri_pos, leaf_size)
     valid = order >= 0
     gat = np.maximum(order, 0)
     p = tri_pos[gat]

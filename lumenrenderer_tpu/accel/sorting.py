@@ -1,7 +1,7 @@
 """Ray sorting for coherence — stream compaction's second half.
 
 The reference leans on RT-core hardware to absorb incoherent secondary rays;
-the TPU pipeline instead *sorts* them (the north star's "compaction via
+this pipeline instead *sorts* them (the north star's "compaction via
 sort/scan"): group rays by direction octant (major) and origin Morton cell
 (minor) so each 128-ray intersector tile becomes a compact cone of nearby
 origins — exactly what the tile-frustum culling (`accel/tiled.py`) wants.
@@ -62,7 +62,7 @@ def sorted_intersectors(isect, occl, scene_lo, scene_hi):
         key = jnp.where(tx_b > tn_b, key, jnp.uint32(0xFFFFFFFF))
         order = jnp.argsort(key)
         # ONE (R,8) row-gather permute instead of four separate permutes
-        # (per-array gathers have a high fixed cost on TPU)
+        # (each gather has a fixed per-op cost)
         packed = jnp.concatenate(
             [o, d, tn_b[:, None], tx_b[:, None]], axis=1
         )[order]
@@ -114,12 +114,11 @@ def sorted_intersectors(isect, occl, scene_lo, scene_hi):
 
 
 # ---------------------------------------------------------------------------
-# Block-local bucket partition — MEASURED LOSER, kept as the recorded
-# experiment (tools/r4_frame_prof.py): the cumsum/scatter mechanics cost
-# 250-422 ms/pass on TPU (scatter-heavy) vs 107 ms for the global argsort,
-# AND its 2048-ray screen-strip blocks span the full screen width, so
-# admission barely improves (bounce kernel 1097 ms vs 252 ms globally
-# sorted). The production path is `sorted_intersectors` above.
+# Block-local bucket partition — a measured loser on the previous
+# accelerator, kept as the recorded experiment: its cumsum/scatter mechanics
+# cost more than the global argsort, AND its 2048-ray screen-strip blocks
+# span the full screen width, so admission barely improves. The production
+# path is `sorted_intersectors` above.
 # ---------------------------------------------------------------------------
 
 PARTITION_BLOCK = 2048

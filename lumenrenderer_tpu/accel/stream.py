@@ -1,9 +1,9 @@
-"""Pair-stream intersector: MXU-batched ray/triangle intersection.
+"""Pair-stream intersector: matmul-batched ray/triangle intersection.
 
-THE TPU-native replacement for OptiX RT-core traversal — designed for the
+A JAX replacement for OptiX RT-core traversal — designed for the
 hardware rather than translated from it (reference: `optixLaunch`,
 `OptixWrapper.cpp:543-567`). Per-ray stack traversal is gather-bound and
-lockstep-divergent on TPU (measured ~0.17 Mrays/s); this module restructures
+lockstep-divergent under XLA; this module restructures
 intersection as dense, sorted, compacted stream work:
 
 1. Triangles are partitioned into CLUSTERS of K by a binned-SAH cut
@@ -29,15 +29,16 @@ from __future__ import annotations
 from functools import partial
 from typing import Tuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..utils import struct
+
 PAIR_TILE = 128
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class ClusterSet:
     """Device cluster table for the pair-stream intersector, plus a small
     second-level SAH tree over cluster AABBs (the TLAS analogue) used by
@@ -52,8 +53,8 @@ class ClusterSet:
     tree_child0: jnp.ndarray  # (Nn,) <0 => leaf -(i+1)
     tree_child1: jnp.ndarray  # (Nn,)
     tree_leaf_cluster: jnp.ndarray  # (Nl,) leaf -> cluster id
-    tris_per_cluster: int = flax.struct.field(pytree_node=False)
-    tree_depth: int = flax.struct.field(pytree_node=False)
+    tris_per_cluster: int = struct.field(static=True)
+    tree_depth: int = struct.field(static=True)
 
     @property
     def num_clusters(self) -> int:
@@ -73,14 +74,9 @@ def build_clusters(tri_pos, cluster_size: int = 64) -> ClusterSet:
     (global frame; f32 is ample at rendering precision for scene extents up
     to ~1e3 — cite: RAY_EPS=1e-3 working precision)."""
     tp32 = np.asarray(tri_pos, np.float32)
-    try:
-        from ..native import bvh_native
+    from .sah import build_sah_fast
 
-        _, _, child0, _, order, _ = bvh_native.build_sah(tp32, cluster_size)
-    except Exception:
-        from .sah import build_sah_arrays
-
-        _, _, child0, _, order, _ = build_sah_arrays(tp32, leaf_size=cluster_size)
+    _, _, child0, _, order, _ = build_sah_fast(tp32, cluster_size)
     tp = tp32.astype(np.float64)
     k = cluster_size
     c = order.shape[0] // k
@@ -105,7 +101,7 @@ def build_clusters(tri_pos, cluster_size: int = 64) -> ClusterSet:
     z3 = lambda a: np.where(vz, a, 0.0).transpose(0, 2, 1)  # (C,3,K)
     feat = np.zeros((c, 10, 4 * k), np.float64)
     # blocked layout: columns [det*K | u*K | v*K | t*K] so each quantity is a
-    # CONTIGUOUS lane slice of the matmul result (TPU-friendly)
+    # CONTIGUOUS slice of the matmul result
     feat[:, 3:6, 0 * k : 1 * k] = z3(-n)
     feat[:, 0:3, 1 * k : 2 * k] = z3(e2)
     feat[:, 3:6, 1 * k : 2 * k] = z3(np.cross(p0, e2))
@@ -204,8 +200,8 @@ def _intersect_tiles(
 
     f = rf[prc]                                 # (T,P,10) one gather
     feats = cs.tri_feat[tc]                     # (T,10,4K)
-    # HIGHEST: the TPU matmul default is one bf16 pass — not enough for
-    # geometric hit predicates (see accel/tiled.py)
+    # HIGHEST: a reduced-precision matmul default (bf16 or TF32) is not
+    # enough for geometric hit predicates (see accel/tiled.py)
     res = jnp.einsum(
         "tpf,tfk->tpk", f, feats, preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,

@@ -1,23 +1,23 @@
 """Tiled-stream intersector: ray-tile × cluster batched Möller–Trumbore.
 
-Second-generation TPU intersector (evolution of `accel/stream.py`, measured
-on v5e): the pair-stream design was dominated by XLA per-row gathers
-(~0.17 µs/row × ~500k pair rows). This design removes them:
+Second-generation intersector (evolution of `accel/stream.py`, whose
+pair stream was dominated by per-row gathers). This design removes them:
 
 - Rays are processed in TILES of 128 *consecutive* rays. A tile's ray
   features are a contiguous reshape — no gather.
 - Per ray-tile, the union of clusters any of its rays hits is computed
-  densely from the (tiles, C) AABB test, ordered by entry distance, and
-  capped at `max_visits` (overflow reported, never silent).
-- A `lax.scan` over the visit slots does one batched matmul per step:
-  (tiles, 128, 10) x (tiles, 10, 4K) — MT's bilinear form on the MXU —
-  and folds the running closest-hit reduction in-place. The only gathers
-  left are `max_visits × tiles` 20 KB cluster-feature rows.
-- The final per-ray reduction is a reshape-min — no scatter.
+  from a (tiles, C) AABB test, ordered by entry distance, and capped at
+  `max_visits` (overflow reported, never silent).
+- The visit loop runs in the fused Pallas kernel
+  (`ops/pallas/intersect.py`): per tile, only its live visits, with an
+  ordered early-out. `_scan_keys` is the plain-XLA reference of the same
+  loop: a `lax.scan` over every visit slot, one batched
+  (tiles, 128, 10) x (tiles, 10, 4K) einsum per step.
+- The final per-ray reduction is a packed-key min — no scatter.
 
 Coherence note: consecutive rays = scanline-coherent for primary/shadow
-rays; bounce rays benefit from the optional pixel-block swizzle in the
-integrator. Incoherent tiles just visit more clusters (overflow flag warns).
+rays; bounce rays benefit from the sort in the integrator. Incoherent
+tiles just visit more clusters (overflow flag warns).
 """
 from __future__ import annotations
 
@@ -27,6 +27,8 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
+from ..ops.pallas import intersect as pk
+from ..ops.pallas.intersect import KEY_MISS
 from .stream import ClusterSet, build_clusters, ray_features  # shared build
 
 RAY_TILE = 128
@@ -218,81 +220,33 @@ def _tile_tree_visits(cs: ClusterSet, o, d, tn, tx, tiles: int, mv: int):
     return visits, valid, jnp.where(valid, vtn, jnp.inf), overflow
 
 
-@partial(jax.jit, static_argnames=("max_visits", "closest", "candidate_dtype",
-                                   "use_pallas", "culling", "decode"))
-def _query(cs: ClusterSet, origins, dirs, t_min, t_max,
-           max_visits: int, closest: bool, candidate_dtype: str = "float32",
-           use_pallas: bool = False, culling: str = "auto",
-           decode: bool = True):
-    r = origins.shape[0]
-    t_min_b = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (r,))
-    t_max_b = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (r,))
-    # the Pallas kernel writes (tiles//8, 8, 128) key blocks — pad to 8 tiles
-    r_pad = (-r) % (RAY_TILE * 8 if use_pallas else RAY_TILE)
-    o = _pad(origins, r_pad, 0.0)
-    d = _pad(dirs, r_pad, 1.0)
-    tn = _pad(t_min_b, r_pad, 0.0)
-    tx = _pad(t_max_b, r_pad, -1.0)  # padded rays dead (t_max < t_min)
-    rp = r + r_pad
-    tiles = rp // RAY_TILE
-    k = cs.tris_per_cluster
-    c = cs.num_clusters
-    mv = min(max_visits, c)
+def _key_layout(k: int, mv: int):
+    """Packed closest-hit key: (bitcast(t) & ~low_mask) | (step << k_bits) | k.
 
-    if use_pallas and (4 * k) % 128 != 0 and jax.default_backend() == "tpu":
-        # Mosaic DMA slices must be 128-lane aligned: the fused kernel needs
-        # cluster_size >= 32 when compiled; smaller clusters use the XLA scan
-        use_pallas = False
-
-    if culling == "auto":
-        # frustum (O(T*C), tile-granular) is the Pallas default while the
-        # dense (T,C) intermediates stay small; big scenes (1M tris ->
-        # C~8k: ~1 GB per (T,C) array at 1440p) take the packet-tree walk
-        culling = (
-            ("frustum" if c <= 2048 else "tree") if use_pallas
-            else ("dense" if c <= 512 else "tree")
-        )
-    if culling == "dense":
-        # O(R*C) dense slab test, exact per-ray union — best for small C
-        hit_rc, tnear_rc = _ray_cluster_window(cs, o, d, tn, tx)
-        hit_tc = jnp.any(hit_rc.reshape(tiles, RAY_TILE, c), axis=1)      # (T,C)
-        tnear_tc = jnp.min(tnear_rc.reshape(tiles, RAY_TILE, c), axis=1)  # (T,C)
-        tnear_tc = jnp.where(hit_tc, tnear_tc, jnp.inf)
-        order = jnp.argsort(tnear_tc, axis=1)[:, :mv]                     # (T,mv)
-        valid_k = jnp.take_along_axis(hit_tc, order, axis=1)              # (T,mv)
-        tnear_k = jnp.take_along_axis(tnear_tc, order, axis=1)
-        overflow = jnp.any(jnp.sum(hit_tc, axis=1) > mv)
-    elif culling == "frustum":
-        order, valid_k, tnear_k, overflow = _frustum_visits(
-            cs, o, d, tn, tx, tiles, mv
-        )
-    else:
-        # O(T * log C) conservative packet traversal of the cluster tree
-        order, valid_k, tnear_k, overflow = _tile_tree_visits(
-            cs, o, d, tn, tx, tiles, mv
-        )
-
-    rf = ray_features(o, d).reshape(tiles, RAY_TILE, 10)
-    tmin_t = tn.reshape(tiles, RAY_TILE)
-    tmax_t = tx.reshape(tiles, RAY_TILE)
-
-    # Closest-hit carries ONE packed int32 key per ray:
-    #   key = (bitcast(t) & ~0xFFF) | (step << 8) | k
-    # Positive-float bit patterns are order-preserving, so min(key) == the
-    # nearest hit up to 2^-11 relative t (ties resolve to any co-near
-    # triangle); exact t/u/v come from one coefficient gather afterwards.
-    # This replaces per-step argmin + 4 take_along_axis (measured dominant).
+    Positive-float bit patterns are order-preserving, so min(key) is the
+    nearest hit up to 2^-(23-low_bits) relative t (ties resolve to any
+    co-near triangle); exact t/u/v come from one coefficient gather after.
+    """
     k_bits = max((k - 1).bit_length(), 1)
     s_bits = max((mv - 1).bit_length(), 1)
     low_bits = k_bits + s_bits
-    # low_bits eat float-t mantissa resolution in the ordering key: 15 low
-    # bits leave 8 mantissa bits => winner unique to ~2^-8 relative t (exact
-    # t/u/v are re-derived for the winner, so ties just pick a co-near tri)
+    # 15 low bits leave 8 mantissa bits => winner unique to ~2^-8 relative t
     assert low_bits <= 15, f"packed-key layout overflow: {k=} {mv=}"
-    low_mask = jnp.int32(~((1 << low_bits) - 1))
-    KEY_MISS = jnp.int32(0x7F000000)
+    return k_bits, s_bits, low_bits
 
-    step_ids = jnp.arange(mv, dtype=jnp.int32)
+
+def _scan_keys(cs: ClusterSet, rf, tmin_t, tmax_t, order, valid_k, *,
+               k_bits: int, low_bits: int, closest: bool):
+    """Plain-XLA reference of the visit loop: a `lax.scan` over all `mv`
+    visit slots of every tile, one batched (T,128,10)x(T,10,4K) einsum per
+    step at Precision.HIGHEST (a float32 einsum's default may round its
+    operands: TF32 on the GPU's tensor cores; HIGH and HIGHEST both matched
+    brute force on the H100, PERF.md). Returns (best_key (T,128),
+    occluded (T,128))."""
+    tiles, _, _ = rf.shape
+    mv = order.shape[1]
+    k = cs.tris_per_cluster
+    low_mask = jnp.int32(~((1 << low_bits) - 1))
     k_ids = jax.lax.broadcasted_iota(jnp.int32, (1, 1, k), 2)
 
     def step(carry, inputs):
@@ -300,24 +254,9 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max,
         sel, ok_k, step_i = inputs                          # (T,), (T,), ()
         feats = cs.tri_feat[sel]                            # (T,10,4K)
         tid = cs.tri_id[sel]                                # (T,K)
-        if candidate_dtype == "bfloat16":
-            # candidate pass in bf16 (4x MXU rate); the winner is re-derived
-            # exactly in f32 afterwards, so only near-edge candidate
-            # classification is approximate
-            res = jnp.einsum(
-                "trf,tfc->trc",
-                rf.astype(jnp.bfloat16),
-                feats.astype(jnp.bfloat16),
-                preferred_element_type=jnp.float32,
-            )
-        else:
-            # explicit HIGHEST/HIGH: the TPU matmul default is one bf16 pass,
-            # which silently turns "float32" candidates into bf16 ones
-            res = jnp.einsum(
-                "trf,tfc->trc", rf, feats, preferred_element_type=jnp.float32,
-                precision=(jax.lax.Precision.HIGH if candidate_dtype == "high"
-                           else jax.lax.Precision.HIGHEST),
-            )
+        res = jnp.einsum("trf,tfc->trc", rf, feats,
+                         preferred_element_type=jnp.float32,
+                         precision=jax.lax.Precision.HIGHEST)
         det = res[..., 0 * k : 1 * k]
         okd = jnp.abs(det) > 1e-12
         inv = jnp.where(okd, 1.0 / jnp.where(okd, det, 1.0), 0.0)
@@ -344,70 +283,133 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max,
         occ = occ | jnp.any(hit, axis=-1)
         return (best_key, occ), None
 
-    if use_pallas:
-        # fused visit-adaptive Pallas kernel (see ops/pallas/intersect.py):
-        # per-tile fori_loop over its actual visits, double-buffered feature
-        # DMA, packed-key min resident in VMEM, ordered early-out. Returns
-        # keys only; the exact winner decode below is SHARED with the scan
-        # path (the earlier in-kernel value pick mis-compiled under Mosaic).
-        import jax as _jax
+    init = (
+        jnp.full((tiles, RAY_TILE), KEY_MISS, jnp.int32),
+        jnp.zeros((tiles, RAY_TILE), bool),
+    )
+    (best_key, occ), _ = jax.lax.scan(
+        step, init, (order.T, valid_k.T, jnp.arange(mv, dtype=jnp.int32))
+    )
+    return best_key, occ
 
-        from ..ops.pallas import intersect as pk
 
-        rf12 = jnp.concatenate([rf.reshape(rp, 10), tn[:, None], tx[:, None]],
-                               axis=1)
-        rf_t = rf12.reshape(tiles, RAY_TILE, 12)
-        sel = order.astype(jnp.int32)
-        nv = jnp.sum(valid_k, axis=1).astype(jnp.int32)
-        tn_bits = jax.lax.bitcast_convert_type(
-            jnp.maximum(tnear_k, 0.0).astype(jnp.float32), jnp.int32
-        )
-        tnb = jnp.where(
-            valid_k, jnp.minimum(tn_bits, KEY_MISS - 1), jnp.int32(KEY_MISS)
-        )
-        prec = {"float32": "highest", "high": "high",
-                "bfloat16": "default"}[candidate_dtype]
-        out = pk.visit_scan(
-            rf_t, cs.tri_feat, cs.tri_id, sel, nv, tnb,
-            k=k, mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest,
-            interpret=_jax.default_backend() != "tpu", precision=prec,
-        )
-        if not closest:
-            occ_f = (out.reshape(rp)[:r] > 0) & ~(t_max_b < t_min_b)
-            return {
-                "t": jnp.full((r,), jnp.inf),
-                "tri": jnp.full((r,), -1, jnp.int32),
-                "u": jnp.zeros((r,)),
-                "v": jnp.zeros((r,)),
-                "occluded": occ_f,
-                "overflow": overflow,
-            }
-        # dead lanes carry key 0 in-kernel (early-out); mask them to miss
-        best_key = jnp.where(
-            (tx < tn).reshape(tiles, RAY_TILE), jnp.int32(KEY_MISS), out
+def _visit_lists(cs: ClusterSet, origins, dirs, t_min, t_max, mv: int,
+                 culling: str):
+    """Pad rays to whole tiles and build each tile's visit list.
+
+    Returns (o, d, tn, tx) padded to R' = tiles * RAY_TILE (padded rays dead:
+    t_max < t_min) and (order (T,mv) cluster ids, valid (T,mv), tnear (T,mv)
+    ascending entry t, overflow)."""
+    r = origins.shape[0]
+    t_min_b = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (r,))
+    t_max_b = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (r,))
+    r_pad = (-r) % RAY_TILE
+    o = _pad(origins, r_pad, 0.0)
+    d = _pad(dirs, r_pad, 1.0)
+    tn = _pad(t_min_b, r_pad, 0.0)
+    tx = _pad(t_max_b, r_pad, -1.0)
+    tiles = (r + r_pad) // RAY_TILE
+    c = cs.num_clusters
+    if culling == "auto":
+        # dense: O(R*C) per-ray slab test, exact per-tile union; big scenes
+        # (1M tris -> C~8k: ~1 GB per (R,C) array at 1440p) take the
+        # packet-tree walk
+        culling = "dense" if c <= 512 else "tree"
+    if culling == "dense":
+        hit_rc, tnear_rc = _ray_cluster_window(cs, o, d, tn, tx)
+        hit_tc = jnp.any(hit_rc.reshape(tiles, RAY_TILE, c), axis=1)      # (T,C)
+        tnear_tc = jnp.min(tnear_rc.reshape(tiles, RAY_TILE, c), axis=1)  # (T,C)
+        tnear_tc = jnp.where(hit_tc, tnear_tc, jnp.inf)
+        order = jnp.argsort(tnear_tc, axis=1)[:, :mv]                     # (T,mv)
+        valid_k = jnp.take_along_axis(hit_tc, order, axis=1)              # (T,mv)
+        tnear_k = jnp.take_along_axis(tnear_tc, order, axis=1)
+        overflow = jnp.any(jnp.sum(hit_tc, axis=1) > mv)
+    elif culling == "frustum":
+        order, valid_k, tnear_k, overflow = _frustum_visits(
+            cs, o, d, tn, tx, tiles, mv
         )
     else:
-        init = (
-            jnp.full((tiles, RAY_TILE), KEY_MISS, jnp.int32),
-            jnp.zeros((tiles, RAY_TILE), bool),
+        # O(T * log C) conservative packet traversal of the cluster tree
+        order, valid_k, tnear_k, overflow = _tile_tree_visits(
+            cs, o, d, tn, tx, tiles, mv
         )
-        (best_key, occ), _ = jax.lax.scan(
-            step, init, (order.T, valid_k.T, step_ids)
-        )
-        if not closest:
-            return {
-                "t": jnp.full((r,), jnp.inf),
-                "tri": jnp.full((r,), -1, jnp.int32),
-                "u": jnp.zeros((r,)),
-                "v": jnp.zeros((r,)),
-                "occluded": occ.reshape(-1)[:r],
-                "overflow": overflow,
-            }
+    return (o, d, tn, tx), (order.astype(jnp.int32), valid_k, tnear_k,
+                            overflow)
 
-    flat = lambda a: a.reshape(-1)[:r]
+
+def _kernel_inputs(o, d, tn, tx, valid_k, tnear_k):
+    """(12, R') ray rows, per-tile visit counts and entry-t key bits in the
+    layout `ops/pallas/intersect.py::visit_scan` takes."""
+    rays = jnp.concatenate(
+        [ray_features(o, d), tn[:, None], tx[:, None]], axis=1).T
+    nv = jnp.sum(valid_k, axis=1).astype(jnp.int32)
+    tn_bits = jax.lax.bitcast_convert_type(
+        jnp.maximum(tnear_k, 0.0).astype(jnp.float32), jnp.int32
+    )
+    tnb = jnp.where(
+        valid_k, jnp.minimum(tn_bits, KEY_MISS - 1), jnp.int32(KEY_MISS)
+    )
+    return rays, nv, tnb
+
+
+@partial(jax.jit, static_argnames=("max_visits", "culling"))
+def kernel_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
+                  max_visits: int, culling: str = "auto"):
+    """The visit kernel's inputs for one pass, for timing the kernel alone
+    (tools/visit_kernel_bench.py)."""
+    mv = min(max_visits, cs.num_clusters)
+    (o, d, tn, tx), (order, valid_k, tnear_k, overflow) = _visit_lists(
+        cs, origins, dirs, t_min, t_max, mv, culling)
+    rays, nv, tnb = _kernel_inputs(o, d, tn, tx, valid_k, tnear_k)
+    return dict(rays=rays, sel=order, nv=nv, tnb=tnb, overflow=overflow)
+
+
+@partial(jax.jit, static_argnames=("max_visits", "closest", "method",
+                                   "culling", "decode", "interpret"))
+def _query(cs: ClusterSet, origins, dirs, t_min, t_max,
+           max_visits: int, closest: bool, method: str = "kernel",
+           culling: str = "auto", decode: bool = True,
+           interpret: bool = False):
+    r = origins.shape[0]
+    k = cs.tris_per_cluster
+    c = cs.num_clusters
+    mv = min(max_visits, c)
+    (o, d, tn, tx), (order, valid_k, tnear_k, overflow) = _visit_lists(
+        cs, origins, dirs, t_min, t_max, mv, culling)
+    tiles = o.shape[0] // RAY_TILE
+
+    k_bits, s_bits, low_bits = _key_layout(k, mv)
+    low_mask = jnp.int32(~((1 << low_bits) - 1))
+
+    if method == "kernel":
+        rays, nv, tnb = _kernel_inputs(o, d, tn, tx, valid_k, tnear_k)
+        best_key = pk.visit_scan(
+            rays, cs.tri_feat, order, nv, tnb,
+            k=k, tile=RAY_TILE, mv=mv, k_bits=k_bits, low_bits=low_bits,
+            closest=closest, interpret=interpret,
+        )
+        occ = best_key > 0
+    elif method == "scan":
+        best_key, occ = _scan_keys(
+            cs, ray_features(o, d).reshape(tiles, RAY_TILE, 10),
+            tn.reshape(tiles, RAY_TILE), tx.reshape(tiles, RAY_TILE), order,
+            valid_k, k_bits=k_bits, low_bits=low_bits, closest=closest)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+
+    if not closest:
+        return {
+            "t": jnp.full((r,), jnp.inf),
+            "tri": jnp.full((r,), -1, jnp.int32),
+            "u": jnp.zeros((r,)),
+            "v": jnp.zeros((r,)),
+            "occluded": occ.reshape(-1)[:r],
+            "overflow": overflow,
+        }
+
     # decode the winner key: step/k bits -> global triangle id (ONE small
     # (R,) gather from the (C,K) id table)
-    bk = flat(best_key)
+    bk = best_key.reshape(-1)[:r]
     found = bk < KEY_MISS
     k_win = bk & ((1 << k_bits) - 1)
     step_win = (bk >> k_bits) & ((1 << s_bits) - 1)
@@ -417,9 +419,9 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max,
     if not decode:
         # fast path (the renderer): exact t/u/v are re-derived downstream by
         # `extract_surface_data` via elementwise MT on its fused attr-table
-        # gather — the (R,10,4) coefficient gather + einsum here measured
-        # 59 ms/call and a ~590 MB HBM spike at 1440p. t is the key's
-        # quantized distance (masked low bits), good to ~2^-(23-low_bits).
+        # gather, which saves a second per-ray gather + einsum here. t is the
+        # key's quantized distance (masked low bits), good to
+        # ~2^-(23-low_bits).
         t_key = jax.lax.bitcast_convert_type(bk & low_mask, jnp.float32)
         return {
             "t": jnp.where(found, t_key, jnp.inf),
@@ -453,36 +455,37 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max,
 
 
 def intersect_closest(cs: ClusterSet, origins, dirs, t_min, t_max,
-                      max_visits: int = 12, candidate_dtype: str = "float32",
-                      use_pallas: bool = False, culling: str = "auto",
-                      decode: bool = True):
-    return _query(cs, origins, dirs, t_min, t_max, max_visits, True,
-                  candidate_dtype, use_pallas, culling, decode)
+                      max_visits: int = 12, culling: str = "auto",
+                      decode: bool = True, interpret: bool = False,
+                      method: str = "kernel"):
+    """Closest hit per ray. method="kernel" runs the Pallas visit kernel
+    (`interpret=True` runs it on the CPU); method="scan" is the plain-XLA
+    reference (`_scan_keys`) that tests and chip_smoke.py compare with."""
+    return _query(cs, origins, dirs, t_min, t_max, max_visits, True, method,
+                  culling, decode, interpret)
 
 
 def intersect_any(cs: ClusterSet, origins, dirs, t_min, t_max,
-                  max_visits: int = 12, candidate_dtype: str = "float32",
-                  use_pallas: bool = False, culling: str = "auto"):
-    return _query(cs, origins, dirs, t_min, t_max, max_visits, False,
-                  candidate_dtype, use_pallas, culling)["occluded"]
+                  max_visits: int = 12, culling: str = "auto",
+                  interpret: bool = False, method: str = "kernel"):
+    return _query(cs, origins, dirs, t_min, t_max, max_visits, False, method,
+                  culling, True, interpret)["occluded"]
 
 
 def tiled_intersectors(cs: ClusterSet, max_visits: int = 12,
-                       candidate_dtype: str = "float32",
-                       use_pallas: bool = False, culling: str = "auto",
-                       decode: bool = True) -> Tuple:
+                       culling: str = "auto", decode: bool = True,
+                       interpret: bool = False) -> Tuple:
+    """(intersect_fn, occlude_fn) on the Pallas visit kernel."""
     def isect(o, d, tn, tx):
         res = intersect_closest(cs, o, d, tn, tx, max_visits=max_visits,
-                                candidate_dtype=candidate_dtype,
-                                use_pallas=use_pallas, culling=culling,
-                                decode=decode)
-        # overflow is surfaced (ADVICE r1): the wavefront loop ORs it into an
-        # AOV so truncated visit lists are never silently dropped
+                                culling=culling, decode=decode,
+                                interpret=interpret)
+        # overflow is surfaced: the wavefront loop ORs it into an AOV so
+        # truncated visit lists are never silently dropped
         return {q: res[q] for q in ("t", "tri", "u", "v", "overflow")}
 
     def occl(o, d, tn, tx):
         return intersect_any(cs, o, d, tn, tx, max_visits=max_visits,
-                             candidate_dtype=candidate_dtype,
-                             use_pallas=use_pallas, culling=culling)
+                             culling=culling, interpret=interpret)
 
     return isect, occl

@@ -1,6 +1,6 @@
 """BVH traversal: batched stack-based traversal under vmap + while_loop.
 
-TPU-native replacement for OptiX ray traversal (`optixLaunch` →
+JAX replacement for OptiX ray traversal (`optixLaunch` →
 `__raygen__WaveFrontRG`, `Shaders/WaveFrontShaders.cu:42-112`). Instead of
 per-thread SIMT traversal on RT cores, rays traverse in lockstep: the scalar
 routine is `vmap`-ped over the ray batch and XLA compiles the `while_loop`

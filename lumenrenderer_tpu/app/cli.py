@@ -1,10 +1,10 @@
 """Command-line renderer application.
 
-TPU-native equivalent of the Sandbox application (`Sandbox/src/
+Equivalent of the Sandbox application (`Sandbox/src/
 Application.cpp:66-165`): reads a JSON config (≙ Config.json), builds the
 scene (glTF or preset), instantiates the renderer, renders progressively,
 and writes PNG output + optional AOV snapshots. The interactive GL/ImGui
-shell is a non-goal on TPU (SURVEY §7); headless progressive rendering with
+shell is a non-goal (SURVEY §7); headless progressive rendering with
 camera paths replaces it.
 
 Usage:
@@ -65,7 +65,8 @@ def main(argv=None) -> int:
     p.add_argument("--denoise", action="store_true")
     p.add_argument("-o", "--output", default=None)
     p.add_argument("--aovs", action="store_true", help="also dump AOV PNGs")
-    p.add_argument("--cpu", action="store_true", help="force CPU backend")
+    p.add_argument("--cpu", action="store_true",
+                   help="force the CPU backend (Pallas kernels interpreted)")
     p.add_argument("--debug-checks", action="store_true",
                    help="NaN/Inf guard: abort naming the first bad stage")
     p.add_argument("--no-mipmaps", action="store_true")
@@ -89,6 +90,10 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+
+    from ..utils import compile_cache
+
+    compile_cache.enable()
 
     from ..utils.config import AppConfig
 
@@ -138,7 +143,7 @@ def main(argv=None) -> int:
         mesh = shard.make_mesh(jax.devices())
         print(f"mesh: {mesh}", file=sys.stderr)
     renderer = Renderer(scene, rc, accel=cfg.accel, mesh=mesh,
-                        stats_every=args.stats_every)
+                        stats_every=args.stats_every, interpret=args.cpu)
     print(
         f"scene: {scene.num_triangles} tris, {int(scene.lights.count)} lights; "
         f"{w}x{h} depth={cfg.max_depth} spp={cfg.spp} "

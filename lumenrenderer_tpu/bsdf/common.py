@@ -1,6 +1,6 @@
 """Shared microfacet/Fresnel math for BSDFs.
 
-TPU-native equivalent of the reference's shared BSDF headers:
+JAX equivalent of the reference's shared BSDF headers:
 `CUDAKernels/bsdf_math.cuh` (Schlick, Smith helpers) and
 `CUDAKernels/ggxmdf.cuh` (GGX + GTR1 microfacet distribution functions).
 All functions are elementwise over batch dims (VPU-friendly).

@@ -1,6 +1,6 @@
 """Disney BSDF: sample + evaluate, fully vectorized and differentiable.
 
-TPU-native re-implementation of the reference's Disney/AppleSeed BSDF
+JAX re-implementation of the reference's Disney/AppleSeed BSDF
 (`CUDAKernels/disney.cuh:173-320+` sample/evaluate, `ggxmdf.cuh` GGX+GTR1
 MDFs, `frosted.cuh` rough dielectric): diffuse with Burley retro-reflection,
 sheen, GGX specular (metallic workflow), GTR1 clearcoat, and rough dielectric

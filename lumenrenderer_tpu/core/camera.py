@@ -1,6 +1,6 @@
 """Pinhole camera with motion-vector support.
 
-TPU-native equivalent of the reference's `Lumen/src/Lumen/Renderer/Camera.h:8-67`
+JAX equivalent of the reference's `Lumen/src/Lumen/Renderer/Camera.h:8-67`
 (eye/U/V/W vector basis, previous+current view-projection matrices for motion
 vectors) and the primary-ray generation kernel
 (`CUDAKernels/WaveFrontKernels/GPUGeneratePrimRay.cu:28-82`, Halton(2,3)
@@ -177,8 +177,8 @@ def motion_vectors(
     """
     n = world_pos.shape[0]
     hp = jnp.concatenate([world_pos, jnp.ones((n, 1), world_pos.dtype)], axis=-1)
-    # HIGHEST: TPU default matmul is one bf16 pass — reprojection needs
-    # subpixel accuracy for ReSTIR temporal reuse
+    # HIGHEST: a reduced-precision default (bf16/TF32) would round it;
+    # reprojection needs subpixel accuracy for ReSTIR temporal reuse
     clip = jnp.matmul(hp, camera.prev_view_proj.T,
                       precision=jax.lax.Precision.HIGHEST)
     ndc = clip[:, :2] / jnp.where(jnp.abs(clip[:, 3:4]) > 1e-8, clip[:, 3:4], 1.0)

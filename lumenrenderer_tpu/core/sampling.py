@@ -1,6 +1,6 @@
 """Sampling primitives: low-discrepancy sequences and warping functions.
 
-TPU-native replacement for the reference's RNG/sampling helpers
+JAX replacement for the reference's RNG/sampling helpers
 (`Shaders/CppCommon/RandomUtilities.cuh` Wang-hash/xorshift,
 `GPUGeneratePrimRay.cu:28-82` Halton(2,3) pixel jitter,
 `RenderingUtility.h:260-338` GGX-VNDF sampling).

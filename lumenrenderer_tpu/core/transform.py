@@ -1,6 +1,6 @@
 """TRS transform hierarchy with dirty-propagation callbacks.
 
-TPU-native equivalent of the reference's `Lumen::Transform`
+JAX equivalent of the reference's `Lumen::Transform`
 (`ModelLoading/Transform.h:12-150`): translation/quaternion-rotation/scale
 with parent/child chaining, lazy world matrices, and a dependent-callback
 system that lets scene instances react to edits (the reference uses it to

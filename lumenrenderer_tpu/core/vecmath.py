@@ -1,10 +1,10 @@
-"""Vector math primitives for the TPU wavefront path tracer.
+"""Vector math primitives for the wavefront path tracer.
 
 All functions operate on arrays whose last axis is the 3 (or 4) vector
 components, so every op is trivially batched/vmapped and XLA fuses the
-elementwise chains onto the VPU.
+elementwise chains.
 
-TPU-native replacement for the reference's CUDA helper headers
+JAX replacement for the reference's CUDA helper headers
 (`Shaders/CppCommon/RenderingUtility.h`, `CUDAKernels/bsdf_math.cuh`).
 """
 from __future__ import annotations

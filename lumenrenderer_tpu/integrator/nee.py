@@ -1,17 +1,17 @@
 """Next-event estimation: light sampling + shadow-ray construction.
 
-TPU-native equivalent of `ShadeDirect`
+JAX equivalent of `ShadeDirect`
 (`CUDAKernels/WaveFrontKernels/GPUShadeDirect.cu:42-153`): pick a triangle
 light, sample a point on it, evaluate the BSDF and geometry term, and emit a
 shadow ray carrying the *unshadowed* contribution; occlusion later zeroes it
 (≙ `ShadowRaysRayGen`, `Shaders/WaveFrontShaders.cu:114-179`).
 
-TPU-first design (round 3): all per-light data — geometry, differentiable
+Design: all per-light data — geometry, differentiable
 radiance, selection pdf — is packed ONCE per frame into a single (L,17)
 `LightTable.aug` matrix. Per-ray selection + data fetch is then ONE one-hot
-matmul (MXU) for L <= ONEHOT_MAX_L lights, replacing the round-2
-`jnp.searchsorted` (measured 238 ms/call at 3.7M rays on v5e) and the
-per-field gathers (measured 37 ms for a single (R,) gather). Uniform and
+matmul for L <= ONEHOT_MAX_L lights, replacing a `jnp.searchsorted`
+and per-field gathers (both measured slower on the previous accelerator;
+not yet re-measured on the GPU). Uniform and
 radiance-weighted CDF selection share the same code path — they differ only
 in the table's cdf/sel_pdf columns.
 """
@@ -108,15 +108,14 @@ def build_light_table(
 
 def _rows_by_index(table: LightTable, idx: jnp.ndarray) -> jnp.ndarray:
     """Fetch aug rows for int32 indices: one-hot matmul for small L (a
-    (R,L)x(L,17) MXU op measured 3x faster than the equivalent gathers at
-    3.7M rays), row gather otherwise. Gradients flow into the radiance
+    (R,L)x(L,17) matmul), row gather otherwise. Gradients flow into the radiance
     columns (one_hot of a detached index is a constant matrix)."""
     L = table.aug.shape[0]
     idx = jnp.clip(idx, 0, L - 1).astype(jnp.int32)
     if L <= ONEHOT_MAX_L:
         oh = jax.nn.one_hot(idx, L, dtype=jnp.float32)
-        # HIGHEST: default TPU matmul precision would round the gathered
-        # light geometry to bf16 (one-hot entries are exact either way)
+        # HIGHEST: a reduced-precision matmul default would round the
+        # gathered light geometry (one-hot entries are exact either way)
         return jnp.matmul(oh, table.aug,
                           precision=jax.lax.Precision.HIGHEST)
     return table.aug[idx]

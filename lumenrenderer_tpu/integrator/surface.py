@@ -1,6 +1,6 @@
 """Hit → SurfaceData extraction.
 
-TPU-native equivalent of `ExtractSurfaceDataGpu`
+JAX equivalent of `ExtractSurfaceDataGpu`
 (`CUDAKernels/WaveFrontKernels/GPUExtractSurfaceData.cu:8-228`): barycentric
 interpolation of normal/tangent/UV, normal mapping, emissive flags and Disney
 parameter texture modulation — as batched gathers + VPU math instead of a
@@ -207,8 +207,8 @@ def extract_surface_data(
     # both downstream values and reverse-mode cotangents.
     t_safe = jnp.where(valid, hit_t, 1.0)
     position = ray_o + t_safe[..., None] * ray_d
-    # column-sliced barycentric interp: rank-3 (R,3,3) reshapes get
-    # (8,128)-tiled minor dims on TPU — measured ~25 ms/pass at 1440p
+    # column-sliced barycentric interp: avoids rank-3 (R,3,3) reshapes
+    # with tiny minor dims
     normal = vm.normalize(
         w * c("normals", 0, 3) + u_ * c("normals", 3, 6)
         + v_ * c("normals", 6, 9))

@@ -1,41 +1,34 @@
-"""Pallas TPU kernels: fused, visit-adaptive ray-tile × cluster intersection.
+"""Pallas kernel (Triton route): fused, visit-adaptive ray-tile × cluster
+intersection for the tiled intersector (`accel/tiled.py`).
 
-TPU-native replacement for the reference's `optixLaunch` ray traversal
+Stands in for the reference's `optixLaunch` traversal
 (`OptixWrapper.cpp:543-567` + `Shaders/WaveFrontShaders.cu:42-112`): instead
-of RT cores walking a BVH per ray, 128-ray tiles test whole 32/64/128-triangle
-SAH clusters as one MXU matmul, with the decode epilogue fused in VMEM.
+of RT cores walking a BVH per ray, blocks of rays test whole SAH clusters of
+K triangles with Möller–Trumbore lifted to a bilinear form. The plain-JAX
+version of the same loop (`accel/tiled.py::_scan_keys`) has to run
+`max_visits` steps for every tile and writes a (tiles, 128, 4K) candidate
+tensor to device memory at every step; this kernel keeps it on chip:
 
-Why this kernel exists (measured on v5e, 3.7M rays, 7.3k tris):
-the XLA `lax.scan` formulation of the same algorithm (accel/tiled.py) costs
-~830 ms per closest-hit pass — the per-candidate decode (u/v/t + predicates)
-materializes (tiles, 128, 4K) tensors through HBM every visit, and the scan
-must run `max_visits` steps for every tile even though the mean live visit
-count is ~7.6. This kernel fixes both:
+- grid = (ray tiles, rays per tile // RB): one program per RB-ray block.
+  Each program reads its tile's visit count and visit list itself and loops
+  over exactly those visits (`while_loop`), so dead tiles cost ~nothing.
+- per visit it loads the cluster's Möller–Trumbore coefficient rows from
+  the (C, 10, 4K) table in KB-triangle chunks. Only the 19 rows that
+  `stream.build_clusters` fills are read (det: rows 3-5, u and v: rows 0-5,
+  t: rows 6-9); the table is ~2 MB at 7k triangles and stays in L2.
+- det/u/v/t are float32 multiply-adds on the SM's FP32 units, not a `dot`:
+  exact float32, no TF32 rounding, and no tensor-core shape constraints
+  (the contraction is only 10 deep).
+- a narrow per-ray accumulator: the packed winner key (closest) or the
+  occlusion bit (any), folded with one row reduction per chunk.
+- ordered early-out: visits arrive sorted by conservative entry t; once
+  every live ray's best hit is nearer than the next cluster's entry, the
+  loop stops (closest). For occlusion it stops once every live ray is
+  blocked. The check runs after every visit (a reduction over RB rays).
 
-- grid = (ray_tiles,): ONE program per 128-ray tile; the per-tile visit loop
-  is a `fori_loop` with the tile's ACTUAL visit count (scalar-prefetched) —
-  dead tiles cost ~nothing, live tiles pay only what they use.
-- cluster features are DMA'd HBM→VMEM, double-buffered, with visit 0
-  pipelined by a scalar-prefetch BlockSpec so the first-visit latency hides
-  behind the previous program.
-- the Möller–Trumbore bilinear form runs as a natural (128,10)x(10,4K) MXU
-  matmul — rays on sublanes, candidates on lanes — so hit-decode and the
-  packed-key min (a lane reduction) involve zero relayouts.
-- division-free sign-test decode; ONE polished reciprocal for the ordering
-  key.
-- ordered early-out: visits arrive sorted by conservative entry t; once every
-  live ray's best hit is closer than the next cluster's entry, remaining
-  visits skip their compute (the reference gets this from OptiX's guaranteed
-  closest-hit traversal order).
-
-The kernel returns ONLY the packed winner key per ray (or the occlusion
-bit); exact winner t/u/v/tri are re-derived OUTSIDE the kernel with one
-coefficient gather + 10x4 einsum (shared with the XLA-scan path in
-accel/tiled.py). Round 3 lesson: the earlier in-kernel winner pick
-(masked cross-lane max of t/u/v/id) silently mis-compiled under Mosaic —
-keys and occlusion matched the XLA path bit-for-bit while picked VALUES
-rotted as visit count grew. Key-only output is simpler, measured-correct,
-and cheaper (no per-candidate reciprocal, one accumulator register).
+The kernel returns ONLY the packed key per ray (or the occlusion bit);
+winner t/u/v are re-derived outside with one coefficient gather (shared with
+the scan path in accel/tiled.py).
 
 Packed key layout (shared with accel/tiled.py): positive-float t bits in the
 high bits (order-preserving), visit step and intra-cluster triangle id in the
@@ -47,411 +40,161 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 KEY_MISS = 0x7F000000  # python int: kernels must not capture traced constants
-RT = 128               # rays per tile (sublane dimension)
-FR = 16                # feature rows, padded from 10 for 8-aligned DMA slices
-NBUF = 6               # feature DMA slot count (pipeline depth NBUF-1)
-EVERY_N = 4            # early-out check cadence (vector->scalar sync cost)
+
+# Rows of the (10, 4K) cluster feature block that `build_clusters` fills, per
+# quantity block [det | u | v | t]; every other row of that block is zero.
+# Ray feature rows are [o×d (0-2), d (3-5), o (6-8), 1 (9)].
+FEATURE_ROWS = ((3, 4, 5), (0, 1, 2, 3, 4, 5), (0, 1, 2, 3, 4, 5),
+                (6, 7, 8, 9))
+
+# Block shape and launch settings, chosen on the card (PERF.md): small
+# register tiles win — (RB, KB) = (8, 64) is 8 values per thread per
+# quantity at 2 warps.
+ROW_BLOCK = 8      # rays per program
+K_BLOCK = 64       # triangles per chunk
+NUM_WARPS = 2
 
 
-def _make_compute(k: int, k_bits: int, low_bits: int, closest: bool,
-                  precision: str, tmin, tmax, kid):
-    """Per-visit MT candidate test + packed-key / occlusion fold into a WIDE
-    (RT, K) accumulator (round 4): the per-visit cross-lane min/any reduce of
-    the old narrow accumulator was ~10 extra wide ops per visit; folding
-    elementwise and reducing ONCE after the loop measured ~8% faster at
-    bench shapes (tools/r4_kernel_lab.py v4_widecheck vs v0_prod).
-
-    Shared by the DMA-pipelined and VMEM-resident kernels — the only thing
-    that differs between them is where `feats` comes from.
-    """
+def _make_kernel(*, k: int, kb: int, rb: int, tile: int, mv: int,
+                 k_bits: int, low_bits: int, closest: bool):
     low_mask = ~((1 << low_bits) - 1)
-    dims = (((1,), (0,)), ((), ()))
 
-    def compute(acc, feats, rfm, i):
-        # MT bilinear form: rays on sublanes, candidates on lanes.
-        # The TPU matmul default is ONE bf16 pass, whose 2^-8 operand
-        # rounding flips hit predicates near edges (measured: 2.8% phantom
-        # occlusions, 13% wrong winners on the interior scene) — geometry
-        # tests need more. "highest" = 6-pass exact f32; "high" = manual
-        # 3-pass Dekker split (Mosaic rejects Precision.HIGH): err ~2^-16
-        # relative — 256x tighter than bf16 at half the MXU passes of
-        # HIGHEST (the dropped lo*lo term is ~2^-16).
-        if precision == "high":
-            f10 = feats[:10]
-            f_hi = f10.astype(jnp.bfloat16)
-            f_lo = (f10 - f_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-            r_hi = rfm.astype(jnp.bfloat16)
-            r_lo = (rfm - r_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-            res = (
-                jax.lax.dot_general(r_hi, f_hi, dimension_numbers=dims,
-                                    preferred_element_type=jnp.float32)
-                + jax.lax.dot_general(r_hi, f_lo, dimension_numbers=dims,
-                                      preferred_element_type=jnp.float32)
-                + jax.lax.dot_general(r_lo, f_hi, dimension_numbers=dims,
-                                      preferred_element_type=jnp.float32)
-            )
-        else:
-            res = jax.lax.dot_general(
-                rfm, feats[:10],
-                dimension_numbers=dims,
-                preferred_element_type=jnp.float32,
-                precision={
-                    "highest": jax.lax.Precision.HIGHEST,
-                    "default": jax.lax.Precision.DEFAULT,
-                }[precision],
-            )                           # (128, 4K)
-        det = res[:, 0 * k:1 * k]
-        un = res[:, 1 * k:2 * k]
-        vn = res[:, 2 * k:3 * k]
-        tn_ = res[:, 3 * k:4 * k]
-        s = jnp.sign(det)
-        ad = det * s                    # |det|
-        us = un * s
-        vs = vn * s
-        ts = tn_ * s
-        hit = (
-            (ad > 1e-12)
-            & (us >= 0.0)
-            & (vs >= 0.0)
-            & (us + vs <= ad)
-            & (ts > tmin * ad)
-            & (ts <= tmax * ad)
-        )
+    def kernel(nv_ref, sel_ref, tnb_ref, rays_ref, feats_ref, out_ref):
+        t = pl.program_id(0)
+        rows = pl.ds(t * tile + pl.program_id(1) * rb, rb)
+        ray = [rays_ref[j, rows] for j in range(12)]          # 12 x (RB,)
+        rf = [r[:, None] for r in ray[:10]]                    # (RB, 1)
+        tmin = ray[10][:, None]
+        tmax = ray[11][:, None]
+        live = ray[11] >= ray[10]                              # (RB,)
+        n = nv_ref[t]
+        kid = jax.lax.broadcasted_iota(jnp.int32, (rb, kb), 1)
+
+        def visit(i, acc):
+            c = sel_ref[t, i]
+            for k0 in range(0, k, kb):
+                q = []
+                for blk, frows in enumerate(FEATURE_ROWS):
+                    cols = pl.ds(blk * k + k0, kb)
+                    s = None
+                    for j in frows:
+                        term = rf[j] * feats_ref[c, j, cols][None, :]
+                        s = term if s is None else s + term
+                    q.append(s)                                # (RB, KB)
+                det, un, vn, tn = q
+                sg = jnp.where(det < 0.0, -1.0, 1.0)
+                ad = det * sg                                  # |det|
+                us = un * sg
+                vs = vn * sg
+                ts = tn * sg
+                hit = ((ad > 1e-12) & (us >= 0.0) & (vs >= 0.0)
+                       & (us + vs <= ad) & (ts > tmin * ad)
+                       & (ts <= tmax * ad))
+                if closest:
+                    tval = ts / jnp.where(hit, ad, 1.0)
+                    tb = jax.lax.bitcast_convert_type(
+                        jnp.maximum(tval, 0.0), jnp.int32)
+                    key = (tb & low_mask) | (i << k_bits) | (kid + k0)
+                    key = jnp.where(hit, key, KEY_MISS)
+                    acc = jnp.minimum(acc, jnp.min(key, axis=1))
+                else:
+                    acc = jnp.maximum(
+                        acc, jnp.max(hit.astype(jnp.int32), axis=1))
+            return acc
+
+        def finished(i, acc):
+            if closest:
+                # dead rays report 0 so they never hold the loop open
+                best = jnp.max(jnp.where(live, acc, 0)) >> low_bits
+                nxt = tnb_ref[t, jnp.minimum(i + 1, mv - 1)] >> low_bits
+                return best < nxt
+            return jnp.min(jnp.where(live, acc, 1)) > 0
+
+        def cond(carry):
+            i, done, _ = carry
+            return (i < n) & (done == 0)
+
+        def body(carry):
+            i, _, acc = carry
+            acc = visit(i, acc)
+            return i + 1, finished(i, acc).astype(jnp.int32), acc
+
+        acc0 = jnp.full((rb,), KEY_MISS if closest else 0, jnp.int32)
+        _, _, acc = jax.lax.while_loop(
+            cond, body, (jnp.int32(0), jnp.int32(0), acc0))
         if not closest:
-            return acc | hit.astype(jnp.int32)   # wide (RT,K) or-fold
-        # ordering key: approximate t (one polished reciprocal);
-        # exact winner values are re-derived host-side from the key
-        ad_safe = jnp.where(ad > 1e-12, ad, 1.0)
-        inv = pl.reciprocal(ad_safe, approx=True)
-        inv = inv * (2.0 - ad_safe * inv)
-        tval = ts * inv
-        tb = pltpu.bitcast(jnp.maximum(tval, 0.0), jnp.int32)
-        key = (tb & jnp.int32(low_mask)) | (i << k_bits) | kid
-        key = jnp.where(hit, key, jnp.int32(KEY_MISS))
-        return jnp.minimum(acc, key)             # wide (RT,K) min-fold
-
-    return compute
-
-
-def _make_kernel(k: int, mv: int, k_bits: int, low_bits: int, closest: bool,
-                 precision: str = "highest"):
-
-    def kernel(sel0_ref, nv_ref, rf_ref, selv_ref, tnbv_ref, first_ref,
-               feats_ref, out_ref, fbuf, sems, srow, trow, rsem):
-        t = pl.program_id(0)
-        row = jax.lax.rem(t, 8)
-        n = nv_ref[t]
-        rf = rf_ref[0]                    # (128, 12)
-        rfm = rf[:, :10]                  # (128, 10) MT ray features
-        tmin = rf[:, 10:11]               # (128, 1)
-        tmax = rf[:, 11:12]
-        dead = tmax < tmin                # (128, 1) padded/dead lanes
-
-        # the visit lists live in HBM ((T/8, 8, 128) int32); the first program
-        # of each 8-tile group copies the group's lists to SMEM scratch,
-        # which persists across the group's programs on this core.
-        @pl.when(row == 0)
-        def _():
-            cps = pltpu.make_async_copy(selv_ref.at[t // 8], srow, rsem.at[0])
-            cpt = pltpu.make_async_copy(tnbv_ref.at[t // 8], trow, rsem.at[1])
-            cps.start()
-            cpt.start()
-            cps.wait()
-            cpt.wait()
-
-        def dma(i):
-            # visit i (i >= 1) lives in slot (i-1) % NBUF
-            slot = jax.lax.rem(i - 1, NBUF)
-            return pltpu.make_async_copy(
-                feats_ref.at[srow[row, i]], fbuf.at[slot], sems.at[slot]
-            )
-
-        # deep prologue: HBM DMA latency >> per-visit compute, so keep
-        # NBUF-1 descriptors in flight (visit 0 is pipelined via its
-        # BlockSpec). NOT NBUF: a depth-NBUF pipeline wraps the write of
-        # dma(i+NBUF) onto slot (i-1)%NBUF — the very slot iteration i is
-        # feeding to the MXU — and no dependency orders that DMA after the
-        # reads.
-        for j in range(1, NBUF):
-            @pl.when(n > j)
-            def _(j=j):
-                dma(j).start()
-
-        # wide (RT, K) accumulator: elementwise fold per visit, ONE cross-
-        # lane reduce after the loop (and inside the amortized checks)
-        if closest:
-            acc0 = jnp.full((RT, k), KEY_MISS, jnp.int32)
-        else:
-            acc0 = jnp.broadcast_to(dead.astype(jnp.int32), (RT, k))
-
-        kid = jax.lax.broadcasted_iota(jnp.int32, (RT, k), 1)
-        compute_fn = _make_compute(k, k_bits, low_bits, closest, precision,
-                                   tmin, tmax, kid)
-
-        def body(i, carry):
-            done, acc = carry
-
-            @pl.when(i > 0)
-            def _():
-                dma(i).wait()
-
-            slot = jax.lax.rem(jnp.maximum(i - 1, 0), NBUF)
-            feats = jnp.where(i == 0, first_ref[0], fbuf[slot])  # (16, 4K)
-
-            # lax.cond (not where): the skip must actually elide the compute
-            new_acc = jax.lax.cond(
-                done, lambda a: a, lambda a: compute_fn(a, feats, rfm, i), acc
-            )
-
-            # the done check reads a vector reduction into the scalar unit —
-            # a cross-unit sync — so amortize it over EVERY_N visits
-            def check(_):
-                if closest:
-                    # ordered early-out: next visit's conservative entry t;
-                    # dead lanes masked to 0 so they never block it
-                    nxt = trow[row, jnp.minimum(i + 1, mv - 1)]
-                    per_ray = jnp.min(new_acc, axis=1)
-                    best_hi = jnp.max(
-                        jnp.where(dead[:, 0], 0, per_ray)) >> low_bits
-                    return done | (best_hi < (nxt >> low_bits))
-                return done | (jnp.min(jnp.max(new_acc, axis=1)) > 0)
-
-            new_done = jax.lax.cond(
-                jax.lax.rem(i, EVERY_N) == EVERY_N - 1,
-                check, lambda _: done, 0,
-            )
-
-            # prologue already started visits 1..NBUF-1; keep NBUF-1 in
-            # flight (slot (i+NBUF-2)%NBUF, never the slot read at i)
-            @pl.when((i >= 1) & (i + NBUF - 1 < n))
-            def _():
-                dma(i + NBUF - 1).start()
-
-            return (new_done, new_acc)
-
-        _, finw = jax.lax.fori_loop(0, n, body, (n <= 0, acc0))
-        if closest:
-            # dead lanes report key 0 (host masks to miss; 0 never wins)
-            fin = jnp.where(dead, 0, jnp.min(finw, axis=1, keepdims=True))
-        else:
-            fin = jnp.max(finw, axis=1, keepdims=True)
-        # outputs are (T/8, 8, 128) int32 blocks — the natural tile, zero
-        # padding waste; each program writes its row (one small transpose)
-        out_ref[0, pl.ds(row, 1), :] = fin.astype(jnp.int32).T
+            acc = jnp.where(live, acc, 0)
+        out_ref[rows] = acc
 
     return kernel
 
 
-def _make_kernel_resident(k: int, mv: int, k_bits: int, low_bits: int,
-                          closest: bool, precision: str = "highest"):
-    """VMEM-resident variant: the WHOLE cluster feature table lives in VMEM
-    (constant-index BlockSpec, loaded once for the entire grid), so the visit
-    loop is back-to-back MXU matmuls with a dynamic VMEM slice per visit —
-    zero per-visit DMA. The DMA-pipelined kernel above was measured
-    latency-bound at bench scale (~345k 64 KB HBM fetches/call); scenes up to
-    RESIDENT_BYTES of features (≈32k tris at K=256) take this path.
-    """
-
-    def kernel(sel0_ref, nv_ref, rf_ref, selv_ref, tnbv_ref, feats_ref,
-               out_ref, srow, trow, rsem):
-        t = pl.program_id(0)
-        row = jax.lax.rem(t, 8)
-        n = nv_ref[t]
-        rf = rf_ref[0]                    # (128, 12)
-        rfm = rf[:, :10]
-        tmin = rf[:, 10:11]
-        tmax = rf[:, 11:12]
-        dead = tmax < tmin
-
-        @pl.when(row == 0)
-        def _():
-            cps = pltpu.make_async_copy(selv_ref.at[t // 8], srow, rsem.at[0])
-            cpt = pltpu.make_async_copy(tnbv_ref.at[t // 8], trow, rsem.at[1])
-            cps.start()
-            cpt.start()
-            cps.wait()
-            cpt.wait()
-
-        if closest:
-            acc0 = jnp.full((RT, k), KEY_MISS, jnp.int32)
-        else:
-            acc0 = jnp.broadcast_to(dead.astype(jnp.int32), (RT, k))
-
-        kid = jax.lax.broadcasted_iota(jnp.int32, (RT, k), 1)
-        compute_fn = _make_compute(k, k_bits, low_bits, closest, precision,
-                                   tmin, tmax, kid)
-
-        def body(i, carry):
-            done, acc = carry
-            feats = feats_ref[srow[row, i]]          # (FR, 4K) VMEM slice
-            new_acc = jax.lax.cond(
-                done, lambda a: a, lambda a: compute_fn(a, feats, rfm, i), acc
-            )
-
-            def check(_):
-                if closest:
-                    nxt = trow[row, jnp.minimum(i + 1, mv - 1)]
-                    per_ray = jnp.min(new_acc, axis=1)
-                    best_hi = jnp.max(
-                        jnp.where(dead[:, 0], 0, per_ray)) >> low_bits
-                    return done | (best_hi < (nxt >> low_bits))
-                return done | (jnp.min(jnp.max(new_acc, axis=1)) > 0)
-
-            new_done = jax.lax.cond(
-                jax.lax.rem(i, EVERY_N) == EVERY_N - 1,
-                check, lambda _: done, 0,
-            )
-            return (new_done, new_acc)
-
-        _, finw = jax.lax.fori_loop(0, n, body, (n <= 0, acc0))
-        if closest:
-            fin = jnp.where(dead, 0, jnp.min(finw, axis=1, keepdims=True))
-        else:
-            fin = jnp.max(finw, axis=1, keepdims=True)
-        out_ref[0, pl.ds(row, 1), :] = fin.astype(jnp.int32).T
-
-    return kernel
-
-
-RESIDENT_BYTES = 8 * 1024 * 1024   # feature tables up to this stay in VMEM
-
-
-@partial(jax.jit, static_argnames=("k", "mv", "k_bits", "low_bits", "closest",
-                                   "interpret", "precision", "resident"))
-def visit_scan(rf_t, feats, tri_id, sel, nv, tnb, *, k: int, mv: int,
+@partial(jax.jit, static_argnames=("k", "tile", "mv", "k_bits", "low_bits",
+                                   "closest", "interpret", "rb", "kb",
+                                   "num_warps"))
+def visit_scan(rays, feats, sel, nv, tnb, *, k: int, tile: int, mv: int,
                k_bits: int, low_bits: int, closest: bool,
-               interpret: bool = False, precision: str = "highest",
-               resident: bool | str = "auto"):
-    """AD-safe entry: the output is discrete (packed keys / occlusion bits)
-    and `pallas_call` has no JVP rule, so a live tangent on ANY input crashes
-    `jax.grad` (VERDICT r3 weak #3). Guard with a custom_jvp that runs the
-    primal and emits a symbolic-zero (float0) tangent — traversal is
-    non-differentiable by design (hit ids are detached; exact t/u/v are
-    re-derived differentiably downstream)."""
-    import numpy as _np
+               interpret: bool = False, rb: int = ROW_BLOCK,
+               kb: int = K_BLOCK, num_warps: int = NUM_WARPS):
+    """Run the fused visit loop.
 
-    impl = partial(_visit_scan_impl, k=k, mv=mv, k_bits=k_bits,
+    rays:  (12, R) f32 — rows 0-9 Möller–Trumbore ray features, row 10 per-ray
+           t_min, row 11 per-ray t_max (t_max < t_min = dead ray). R is a
+           multiple of `tile`; ray tile t is rays [t*tile, (t+1)*tile).
+    feats: (C, 10, 4K) f32 cluster coefficients (ClusterSet.tri_feat).
+    sel:   (T, mv) i32 cluster ids per visit (sorted by entry t).
+    nv:    (T,) i32 live visit count per tile.
+    tnb:   (T, mv) i32 conservative entry-t float bits (KEY_MISS = invalid).
+
+    Returns (R,) i32 — closest: packed winner keys (KEY_MISS = miss, dead rays
+    included); any: occlusion 0/1.
+
+    The output is discrete and `pallas_call` has no JVP rule, so a live
+    tangent on any input would crash `jax.grad`. A custom_jvp runs the primal
+    and emits a symbolic-zero (float0) tangent: traversal is
+    non-differentiable by design (hit ids are detached; exact t/u/v are
+    re-derived differentiably downstream).
+    """
+    impl = partial(_visit_call, k=k, tile=tile, mv=mv, k_bits=k_bits,
                    low_bits=low_bits, closest=closest, interpret=interpret,
-                   precision=precision, resident=resident)
+                   rb=rb, kb=kb, num_warps=num_warps)
 
     @jax.custom_jvp
-    def call(rf_t, feats, tri_id, sel, nv, tnb):
-        return impl(rf_t, feats, tri_id, sel, nv, tnb)
+    def call(rays, feats, sel, nv, tnb):
+        return impl(rays, feats, sel, nv, tnb)
 
     @call.defjvp
     def _call_jvp(primals, tangents):
         out = call(*primals)
-        return out, _np.zeros(out.shape, jax.dtypes.float0)
+        return out, np.zeros(out.shape, jax.dtypes.float0)
 
-    return call(rf_t, feats, tri_id, sel, nv, tnb)
+    return call(rays, feats, sel, nv, tnb)
 
 
-def _visit_scan_impl(rf_t, feats, tri_id, sel, nv, tnb, *, k: int, mv: int,
-                     k_bits: int, low_bits: int, closest: bool,
-                     interpret: bool = False, precision: str = "highest",
-                     resident: bool | str = "auto"):
-    """Run the fused visit loop.
-
-    rf_t:  (T, 128, 12) f32 — cols 0-9 MT ray features, col 10 per-ray t_min,
-           col 11 per-ray t_max (t_max < t_min = dead lane).
-    feats: (C, 10, 4K) f32 cluster MT coefficients (ClusterSet.tri_feat).
-    tri_id:(C, K) i32 global triangle ids (unused here; kept for signature
-           stability — winner decode happens in accel/tiled.py).
-    sel:   (T, mv) i32 cluster ids per visit (sorted by entry t, 0-padded).
-    nv:    (T,) i32 live visit count per tile.
-    tnb:   (T, mv) i32 conservative entry-t float bits (KEY_MISS = invalid).
-
-    Returns: (T, 128) i32 — closest: packed winner keys (>= KEY_MISS = miss;
-    dead lanes return 0, callers mask them); any: occlusion 0/1.
-    T must be a multiple of 8 (visit lists are group-DMA'd per 8 tiles).
-    """
-    tiles = rf_t.shape[0]
-    assert tiles % 8 == 0, tiles
-    assert mv <= 128, mv
-    fk = feats.shape[-1]
-    # pad feature rows 10 -> 16 (HBM DMA slices need 8-aligned sublanes)
-    feats16 = jnp.pad(feats, ((0, 0), (0, FR - feats.shape[1]), (0, 0)))
-    if resident == "auto":
-        resident = feats16.size * 4 <= RESIDENT_BYTES
-    # SMEM is ~1 MB: only the per-TILE scalars (first cluster id + visit
-    # count) are scalar-prefetched; the (T, mv) visit lists are padded to
-    # full 128-lane rows and group-DMA'd to SMEM inside the kernel.
-    sel0 = sel[:, 0].astype(jnp.int32)
-    mvp = 128
-    pad = ((0, 0), (0, mvp - mv))
-    selv = jnp.pad(sel.astype(jnp.int32), pad).reshape(tiles // 8, 8, mvp)
-    tnbv = jnp.pad(tnb.astype(jnp.int32), pad, constant_values=KEY_MISS
-                   ).reshape(tiles // 8, 8, mvp)
-    if resident:
-        kernel = _make_kernel_resident(k, mv, k_bits, low_bits, closest,
-                                       precision)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(tiles,),
-            in_specs=[
-                pl.BlockSpec((1, RT, 12), lambda t, sel0, nv: (t, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.HBM),
-                pl.BlockSpec(memory_space=pltpu.HBM),
-                # ENTIRE feature table in VMEM; constant index map => loaded
-                # once, resident across all grid programs
-                pl.BlockSpec(feats16.shape,
-                             lambda t, sel0, nv: (0, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, 8, RT), lambda t, sel0, nv: (t // 8, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            scratch_shapes=[
-                pltpu.SMEM((8, mvp), jnp.int32),
-                pltpu.SMEM((8, mvp), jnp.int32),
-                pltpu.SemaphoreType.DMA((2,)),
-            ],
-        )
-        out = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((tiles // 8, 8, RT), jnp.int32),
-            interpret=interpret,
-        )(sel0, nv, rf_t, selv, tnbv, feats16)
-        return out.reshape(tiles, RT)
-    kernel = _make_kernel(k, mv, k_bits, low_bits, closest, precision)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((1, RT, 12), lambda t, sel0, nv: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            # visit lists stay in HBM; each 8-tile group DMAs its rows to SMEM
-            pl.BlockSpec(memory_space=pltpu.HBM),
-            pl.BlockSpec(memory_space=pltpu.HBM),
-            # visit 0's cluster block, pipelined via scalar prefetch
-            pl.BlockSpec((1, FR, fk), lambda t, sel0, nv: (sel0[t], 0, 0),
-                         memory_space=pltpu.VMEM),
-            # full cluster table stays in HBM; visits >= 1 are manual DMA
-            pl.BlockSpec(memory_space=pltpu.HBM),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 8, RT), lambda t, sel0, nv: (t // 8, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((NBUF, FR, fk), jnp.float32),
-            pltpu.SemaphoreType.DMA((NBUF,)),
-            pltpu.SMEM((8, mvp), jnp.int32),
-            pltpu.SMEM((8, mvp), jnp.int32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    out = pl.pallas_call(
+def _visit_call(rays, feats, sel, nv, tnb, *, k, tile, mv, k_bits, low_bits,
+                closest, interpret, rb, kb, num_warps):
+    r = rays.shape[1]
+    tiles = r // tile
+    rb = min(rb, tile)
+    kb = min(kb, k)
+    assert r % tile == 0 and tile % rb == 0 and k % kb == 0, (r, tile, rb, k)
+    for size in (rb, kb):
+        assert size & (size - 1) == 0, f"block sizes must be powers of 2: {size}"
+    kernel = _make_kernel(k=k, kb=kb, rb=rb, tile=tile, mv=mv, k_bits=k_bits,
+                          low_bits=low_bits, closest=closest)
+    return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((tiles // 8, 8, RT), jnp.int32),
+        grid=(tiles, tile // rb),
+        out_shape=jax.ShapeDtypeStruct((r,), jnp.int32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
-    )(sel0, nv, rf_t, selv, tnbv, feats16, feats16)
-    return out.reshape(tiles, RT)
+        name="visit_closest" if closest else "visit_any",
+    )(nv.astype(jnp.int32), sel.astype(jnp.int32), tnb.astype(jnp.int32),
+      rays, feats)

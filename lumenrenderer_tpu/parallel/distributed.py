@@ -1,11 +1,10 @@
-"""Multi-host entry point (round 4, VERDICT #8).
+"""Multi-host entry point.
 
 The reference has no distributed backend at all (single CUcontext,
-SURVEY §2.7); the TPU-native design scales over a `jax.sharding.Mesh` whose
-devices may span hosts. This module is the process bootstrap: on a pod
-slice, every host runs the same program and calls `initialize()` before
-touching jax.devices(); JAX wires the DCN coordinator from the TPU
-environment automatically (explicit args for CPU/GPU fleets or tests).
+SURVEY §2.7); this design scales over a `jax.sharding.Mesh` whose devices
+may span hosts. This module is the process bootstrap: every process runs the
+same program and calls `initialize()` before touching jax.devices(), with an
+explicit coordinator address, process count and process id.
 """
 from __future__ import annotations
 
@@ -24,11 +23,11 @@ def initialize(
 ) -> bool:
     """Bring up jax.distributed for multi-host meshes.
 
-    - On TPU pods: zero-arg call; JAX autodetects the coordinator from the
-      TPU metadata. Every host must call this before any device op.
-    - Elsewhere (tests, CPU fleets): pass coordinator/num_processes/id or
-      set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID.
-    - Safe no-op (returns False) when single-process or already initialized.
+    - Pass coordinator/num_processes/id, or set JAX_COORDINATOR_ADDRESS /
+      JAX_NUM_PROCESSES / JAX_PROCESS_ID. Every process must call this
+      before any device op.
+    - Safe no-op (returns False) without a coordinator address, or when
+      already initialized.
     """
     global _initialized
     if _initialized:
@@ -41,16 +40,10 @@ def initialize(
     process_id = process_id if process_id is not None else (
         int(os.environ["JAX_PROCESS_ID"])
         if "JAX_PROCESS_ID" in os.environ else None)
-    # Pod detection from environment variables ONLY (ADVICE r4 high):
-    # touching any backend-initializing JAX API (jax.default_backend(),
-    # jax.devices(), ...) before jax.distributed.initialize() makes JAX
-    # 0.9 raise "must be called before any backend is initialized", so a
-    # backend probe here would break every real multi-host bootstrap.
-    on_tpu_pod = (
-        int(os.environ.get("TPU_WORKER_COUNT", "1")) > 1
-        or bool(os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"))
-    )
-    if coordinator_address is None and not on_tpu_pod:
+    # no backend probe here: any backend-initializing JAX API
+    # (jax.devices(), ...) before jax.distributed.initialize() makes it raise
+    # "must be called before any backend is initialized"
+    if coordinator_address is None:
         return False  # single-process: nothing to do
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

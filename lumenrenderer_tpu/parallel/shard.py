@@ -5,7 +5,7 @@ this is a first-class new component. Design (SURVEY §5.7, BASELINE north
 star): shard the PIXEL/TILE axis across chips — rays for a tile stay
 chip-local through intersect/shade/compact, the scene+BVH pytree is
 replicated per device, and the only cross-chip traffic is image assembly and
-gradient reduction, which XLA emits as psum over ICI from the sharding
+gradient reduction, which XLA emits as psum (NCCL on GPUs) from the sharding
 annotations (GSPMD). No hand-written collectives needed on this path.
 
 Axis names: 'tiles' (data-parallel pixels). Multi-host extends the same mesh

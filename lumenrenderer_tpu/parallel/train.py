@@ -4,9 +4,9 @@ The "full training step" of this framework: render the scene, compare to a
 target image, differentiate w.r.t. scene parameters (materials, emission,
 env — the north star's gradient targets), and apply an optax update. Under
 the tile-sharded mesh (`parallel/shard.py`), XLA turns the parameter
-gradients (replicated params, sharded pixel loss) into psum over ICI
-automatically and overlaps them with the backward pass — the TPU-native
-equivalent of gradient all-reduce in a data-parallel trainer.
+gradients (replicated params, sharded pixel loss) into a psum
+automatically and overlaps it with the backward pass — the gradient
+all-reduce of a data-parallel trainer.
 """
 from __future__ import annotations
 

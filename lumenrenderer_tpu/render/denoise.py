@@ -1,6 +1,6 @@
 """Edge-avoiding À-Trous wavelet denoiser.
 
-TPU-native replacement for the reference's denoiser slots (OptiX AI
+JAX replacement for the reference's denoiser slots (OptiX AI
 denoiser `Framework/OptixDenoiserWrapper.{h,cpp}`, NRD/DLSS via DX11
 `Framework/Nvidia/*`): those are closed black boxes behind an interop
 layer; here denoising is an open, differentiable JAX image filter driven by

@@ -1,6 +1,6 @@
 """Renderer frame state — an explicit, checkpointable pytree.
 
-TPU-native equivalent of the mutable GPU buffers the reference keeps on
+JAX equivalent of the mutable GPU buffers the reference keeps on
 `WaveFrontRenderer` (accumulation/blend counter `WaveFrontRenderer.h:99-108`,
 frame index swap `WaveFrontRenderer.cpp:1039-1081`) — except here the whole
 render state is one pytree: donate it through the jitted step, shard it,

@@ -3,7 +3,7 @@
 ≙ `WaveFrontSettings` render vs output resolution
 (`Framework/WaveFrontRenderer.h:41-45`) and the DLSS evaluate call
 (`WaveFrontRenderer.cpp:975-993`). DLSS itself is closed NVIDIA IP behind a
-DX11 interop; the TPU-native slot is an open upscaler: bilinear / Lanczos3
+DX11 interop; this slot is an open upscaler: bilinear / Lanczos3
 via XLA resize, optionally sharpened. A learned JAX upscaler can drop into
 the same seam later.
 """

@@ -1,6 +1,6 @@
 """ReSTIR direct illumination — reservoir spatiotemporal resampling.
 
-TPU-native re-architecture of the reference's ReSTIR stack:
+JAX re-architecture of the reference's ReSTIR stack:
 host orchestrator `ReSTIR::Run` (`Framework/ReSTIR.cpp:65-233`) and kernels
 (`CUDAKernels/ReSTIRKernels.cu`): CDF build (:49-130), light-bag fill
 (:327-370), per-pixel RIS of 32 candidates (:372-522), visibility
@@ -9,15 +9,15 @@ reprojection and 20x M-clamp (:983-1121), spatial reuse 2 iterations x 5
 neighbours in 30px with depth/normal similarity gates (:745-980), biased
 combine (:1123-1257).
 
-TPU-first differences:
+Differences:
 - thrust sort + inclusive_scan CDF → `jnp.cumsum` + `searchsorted` (the
   reference's own algorithm, minus the radiance sort which only existed to
   help its binary search).
 - The per-SM light-bag cache trick (`__mysmid`, ReSTIRKernels.cu:425-433)
-  has no TPU analogue (no SM-local shared memory at the XLA level); bags are
+  has no analogue at the XLA level (no SM-local shared memory); bags are
   kept (they bound gather fan-out into the big light table and decorrelate
   candidates exactly like the reference) and assigned per PIXEL TILE so a
-  tile's candidate gathers hit one small bag — the TPU locality equivalent.
+  tile's candidate gathers hit one small bag — the locality equivalent.
 - All reservoir state is a pytree (checkpointable; SURVEY §5.4) and every
   pass is a dense masked array op — no atomics, no ping-pong buffer pairs
   (functional updates replace `SwapBuffers`, ReSTIR.cpp:264-274).
@@ -30,12 +30,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from ..core import vecmath as vm
 from ..scene.scene import SceneData
+from ..utils import struct
 
 SHADOW_EPS = 1e-3
 
@@ -47,10 +47,9 @@ class RestirConfig:
     candidates: int = 32          # primary samples per reservoir
     num_bags: int = 50
     bag_size: int = 1000
-    # TPU-native (round 5): ONE candidate set per bag_tile instead of per
-    # pixel — candidate light rows broadcast across the tile's pixels in a
-    # tile-major layout instead of 8.4M-row gathers (measured 300 -> ~60 ms
-    # at 512², tools/r5_restir_prof.py). Each pixel still runs its own RIS
+    # ONE candidate set per bag_tile instead of per pixel — candidate
+    # light rows broadcast across the tile's pixels in a tile-major layout
+    # instead of 8.4M-row gathers. Each pixel still runs its own RIS
     # pick with its own target pdfs, so every reservoir stays a valid RIS
     # estimator (unbiasedness needs candidates ~ bag distribution, not
     # cross-pixel independence); cross-pixel noise inside a tile correlates,
@@ -67,7 +66,7 @@ class RestirConfig:
     normal_gate: float = 0.906    # cos(25 deg), reuse normal gate
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Reservoir:
     """Per-pixel reservoir (R=1), ≙ `Reservoir` struct (`ReSTIRData.h`)."""
 
@@ -79,7 +78,7 @@ class Reservoir:
     p_hat: jnp.ndarray      # (N,) target pdf of the chosen sample
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class RestirState:
     """Temporal history: previous reservoirs + gbuffer for similarity gates
     and for the unbiased combine's re-evaluation at the history surface
@@ -287,7 +286,7 @@ def ris_primary(scene, sd, bags, bag_pdf, cfg: RestirConfig, width, key,
     py = jnp.arange(n, dtype=jnp.int32) // width
     tile = (py // cfg.bag_tile) * 1024 + (px // cfg.bag_tile)
     kb, kc, kp, kr = jax.random.split(key, 4)
-    # all pixels in a tile share a bag (coherent gathers — the TPU analogue
+    # all pixels in a tile share a bag (coherent gathers — the analogue
     # of the reference's per-SM bag cache)
     bag_of_tile = jax.random.randint(kb, (1 << 16,), 0, cfg.num_bags)
     bag_idx = bag_of_tile[tile % bag_of_tile.shape[0]]

@@ -1,6 +1,6 @@
 """Serialized scene cache — fast binary reload of built scenes.
 
-TPU-native replacement for the reference's custom `.ollad` model format
+JAX replacement for the reference's custom `.ollad` model format
 (`Lumen/src/Lumen/Tools/LumenPTModelConverter.{h,cpp}`: glTF → header +
 blob, ~10x faster reload). Here the built `SceneData` pytree (already SoA)
 serializes losslessly to one .npz — no bespoke format needed; the pytree IS

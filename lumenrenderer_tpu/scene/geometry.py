@@ -1,6 +1,6 @@
 """Host-side geometry: meshes, instances, and scene flattening.
 
-TPU-native equivalent of the reference's mesh pipeline:
+JAX equivalent of the reference's mesh pipeline:
 `PTMesh`/`PTPrimitive` (`Framework/PTPrimitive.h:36`), instance records
 (`DevicePrimitiveInstance`, `Shaders/CppCommon/ModelStructs.h:31-78`), and the
 vertex interleave in `WaveFrontRenderer::CreatePrimitive`

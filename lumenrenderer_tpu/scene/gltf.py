@@ -1,6 +1,6 @@
 """glTF 2.0 scene loader.
 
-TPU-native equivalent of the reference's `SceneManager::LoadGLTF`
+JAX equivalent of the reference's `SceneManager::LoadGLTF`
 (`Lumen/src/Lumen/ModelLoading/SceneManager.cpp:42-130`, materials
 `:305-425`, meshes with index/tangent generation `:277-440`, node hierarchy
 `:207-275`) built on fx-gltf — here a dependency-free numpy implementation

@@ -1,13 +1,13 @@
 """Triangle-light extraction and the light table.
 
-TPU-native equivalent of the reference's emissive pipeline:
+JAX equivalent of the reference's emissive pipeline:
 `FindEmissivesGpu` (`CUDAKernels/WaveFrontKernels/GPUEmissiveLookup.cu:13-110`,
 marks emissive triangles per primitive), `LightDataBuffer`
 (`Framework/LightDataBuffer.cpp:37-130`, per-frame world-space
 `TriangleLight{p0,p1,p2,normal,radiance,area}` expansion with a capacity trim)
 and `BuildLightDataBufferGPU` (`GPUDataBufferKernels.cu:10-66`).
 
-Key TPU-first difference: light *geometry* (positions/areas) is selected on the
+Key difference: light *geometry* (positions/areas) is selected on the
 host at scene build, but light *radiance* is gathered from the differentiable
 MaterialTable at shade time, so pixel gradients w.r.t. emission flow through
 NEE and ReSTIR. A capacity cap keeps shapes static like the reference's 1M cap

@@ -1,6 +1,6 @@
 """Material table: structure-of-arrays Disney BSDF parameters.
 
-TPU-native replacement for the reference's packed `MaterialData`
+JAX replacement for the reference's packed `MaterialData`
 (`Shaders/CppCommon/MaterialStructs.h:13-263`) and `PTMaterial`
 (`Framework/PTMaterial.{h,cpp}`). Instead of byte-packed float4 records,
 parameters are plain float32 SoA arrays living in a pytree — indexed with
@@ -66,8 +66,8 @@ class MaterialTable:
 
     def packed(self) -> jnp.ndarray:
         """All float params concatenated to an (M, 22) matrix so per-ray
-        material access is ONE row gather instead of ~15 (XLA:TPU gathers
-        have a high fixed per-op cost). Differentiable: concat/slice carry
+        material access is ONE row gather instead of ~15 (each gather has
+        a fixed per-op cost). Differentiable: concat/slice carry
         gradients back to the individual parameter leaves."""
         return jnp.concatenate(
             [

@@ -1,6 +1,6 @@
 """The device scene pytree and its host-side builder.
 
-TPU-native replacement for the reference's scene stack:
+JAX replacement for the reference's scene stack:
 `PTScene` + `SceneDataTable` (`Framework/PTScene.cpp`, `SceneDataTable.h:18`) —
 instead of a GPU byte-table indexed by OptiX instance id, the scene is a
 structure-of-arrays pytree; per-instance records become plain gathers.

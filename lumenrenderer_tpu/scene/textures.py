@@ -1,11 +1,11 @@
 """Texture atlas with gather-based bilinear/trilinear (mipmapped) sampling.
 
-TPU-native replacement for the reference's CUDA mipmapped texture objects
+JAX replacement for the reference's CUDA mipmapped texture objects
 (`Framework/PTTexture.cpp:64-65` builds mipmapped arrays with linear mip
 filtering; `Framework/GPUTexture.cpp`) and its default white/normal fallback
 textures (`Renderer/LumenRenderer.cpp`).
 
-TPUs have no texture units; sampling is 4 (bilinear) or 8 (trilinear)
+XLA has no texture units; sampling is 4 (bilinear) or 8 (trilinear)
 gathers from a flat texel pool. All textures AND their full mip chains (2x2
 box-filtered) are concatenated into one (N_texels, 4) float32 array with
 per-texture per-level offset records, so sampling is shape-static and

@@ -1,6 +1,6 @@
 """Run-time application configuration (JSON).
 
-TPU-native equivalent of `AppConfiguration` (`Sandbox/src/AppConfiguration.h`
+Equivalent of `AppConfiguration` (`Sandbox/src/AppConfiguration.h`
 + `AppConfigKeys.h` + defaults `AppConfigDefaults.h:1-11`): a JSON file with
 asset/scene paths, resolution, depth, renderer toggles; missing file →
 defaults written (the reference does the same). Feeds `RenderConfig` +
@@ -26,7 +26,7 @@ class AppConfig:
     light_strategy: str = "mis"
     use_restir: bool = False
     denoise: bool = False
-    accel: str = "stream"
+    accel: str = "tiled"                 # the bench's intersector
     exposure: float = 1.0
     tonemap: str = "gamma"               # gamma | aces
     output_path: str = "out.png"

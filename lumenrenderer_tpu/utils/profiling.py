@@ -1,6 +1,6 @@
 """Frame statistics and profiling.
 
-TPU-native equivalent of the reference's observability stack (SURVEY §5.1):
+JAX equivalent of the reference's observability stack (SURVEY §5.1):
 `Timer` (`Framework/Timer.h`), per-stage `FrameStats`
 (`Renderer/LumenRenderer.h:29-34`, filled across `TraceFrame`), and the
 ImGui `Profiler`'s rolling window (`ToolUI/Profiler.h:6-41`). Because the

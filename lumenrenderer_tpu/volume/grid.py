@@ -1,6 +1,6 @@
 """Density-grid volumes: dense bricks + NanoVDB-style sparse grids.
 
-TPU-native replacement for the reference's volume stack: `PTVolume` loads
+JAX replacement for the reference's volume stack: `PTVolume` loads
 .vdb via OpenVDB → NanoVDB → GPU buffer (`Framework/PTVolume.cpp:47-105`);
 here a volume is a float32 density field in a pytree — trilinearly sampled
 with gathers, fully differentiable w.r.t. density (the north star's
@@ -23,12 +23,13 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import flax.struct
 import jax.numpy as jnp
 import numpy as np
 
+from ..utils import struct
 
-@flax.struct.dataclass
+
+@struct.dataclass
 class VolumeSet:
     """V dense grids with shared brick resolution (padded).
 
@@ -71,7 +72,7 @@ def make_volume_set(
 BRICK = 8  # sparse brick edge (≙ NanoVDB leaf LOG2DIM=3)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class SparseVolumeSet:
     """V sparse grids sharing one brick stack (two-level index + 9³ bricks).
 
@@ -93,8 +94,7 @@ class SparseVolumeSet:
     albedo: jnp.ndarray
     # true sample-grid resolution (pre-padding); the world box spans
     # sample indices [0, res-1] exactly like the dense VolumeSet
-    res: Tuple[int, int, int] = flax.struct.field(pytree_node=False,
-                                                  default=(0, 0, 0))
+    res: Tuple[int, int, int] = struct.field(static=True, default=(0, 0, 0))
 
     @property
     def count(self) -> int:

@@ -1,6 +1,6 @@
 """Volumetric ray-marching: transmittance + single-scatter NEE.
 
-TPU-native equivalent of `VolumetricShadeDirect`
+JAX equivalent of `VolumetricShadeDirect`
 (`CUDAKernels/VolumetricKernels/GPUVolumetricShadeDirect.cu:8-101`): the
 reference marches MAX_STEPS=5 jittered steps between the volume entry/exit
 reported by the custom-primitive IS (`Shaders/volumetric_wavefront.cu:60-97`)

@@ -1,6 +1,6 @@
 // Native binned-SAH BVH builder.
 //
-// TPU-native framework's host-side native component: the scene/BVH build is
+// The framework's host-side native component: the scene/BVH build is
 // host work (the reference builds its acceleration structures in C++ too —
 // OptixWrapper::BuildGeometryAccelerationStructure, OptixWrapper.cpp:46-78);
 // the pure-numpy builder in accel/sah.py is the reference implementation and

@@ -157,12 +157,14 @@ def test_cli_end_to_end(tmp_path):
             "--preset", "cornell", "--spp", "2", "--size", "32x32",
             "--out-size", "64x64", "--depth", "2", "-o", out, "--cpu", "--aovs",
         ],
-        capture_output=True, text=True, env=env, cwd="/root/repo", timeout=500,
+        capture_output=True, text=True, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        timeout=500,
     )
     assert r.returncode == 0, r.stderr[-2000:]
     assert os.path.exists(out)
     assert os.path.exists(out.replace(".png", ".albedo.png"))
-    from PIL import Image
-
-    img = Image.open(out)
-    assert img.size == (64, 64)  # upscaled output resolution
+    with open(out, "rb") as f:
+        head = f.read(24)
+    # IHDR width/height: the upscaled output resolution
+    assert struct.unpack(">II", head[16:24]) == (64, 64)

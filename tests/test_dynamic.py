@@ -1,4 +1,4 @@
-"""Dynamic scene path (round 4, VERDICT #7): moving an instance across frames
+"""Dynamic scene path: moving an instance across frames
 rebakes geometry/lights/clusters on device with NO recompile, and the image
 tracks the motion (≙ PTScene dirty-IAS rebuild, PTScene.cpp:77-160)."""
 import jax
@@ -35,7 +35,7 @@ def test_instance_moves_without_recompile():
     cfg = RenderConfig(width=32, height=32, max_depth=2, bsdf="lambert",
                        light_strategy="nee", rr_start_depth=99,
                        jitter="center", sort_secondary=False)
-    r = Renderer(sc, cfg, accel="tiled", use_pallas=False, dynamic=dyn,
+    r = Renderer(sc, cfg, accel="tiled", interpret=True, dynamic=dyn,
                  donate=False)
 
     st = r.init_state(0)
@@ -84,7 +84,7 @@ def test_light_instance_motion_refits_light_table():
     cfg = RenderConfig(width=24, height=24, max_depth=2, bsdf="lambert",
                        light_strategy="nee", rr_start_depth=99,
                        jitter="center", sort_secondary=False)
-    r = Renderer(sc, cfg, accel="tiled", use_pallas=False, dynamic=dyn,
+    r = Renderer(sc, cfg, accel="tiled", interpret=True, dynamic=dyn,
                  donate=False)
     st = r.init_state(0)
     st, aux = r.render_frame(st, cam)
@@ -141,7 +141,7 @@ def test_dynamic_with_restir_tracks_motion():
     dyn = DynamicScene(_scene())
     sc = dyn.build()
     cam = Camera.look_at(eye=(0, 0, 6), target=(0, 0, 0), fov_y_deg=40.0)
-    r = Renderer(sc, cfg, accel="tiled", use_pallas=False, dynamic=dyn,
+    r = Renderer(sc, cfg, accel="tiled", interpret=True, dynamic=dyn,
                  donate=False, restir_config=rcfg)
     st = r.init_state(0)
     st, aux0 = r.render_frame(st, cam)
@@ -174,7 +174,7 @@ def test_dynamic_under_mesh_matches_single_device():
     def render_moved(mesh):
         dyn = DynamicScene(_scene())
         sc = dyn.build()
-        r = Renderer(sc, cfg, accel="tiled", use_pallas=False, dynamic=dyn,
+        r = Renderer(sc, cfg, accel="tiled", interpret=True, dynamic=dyn,
                      donate=False, mesh=mesh)
         st = r.init_state(0)
         st, _ = r.render_frame(st, cam)
@@ -196,7 +196,7 @@ def test_cluster_drift_advises_rebuild_on_large_excursion():
     cfg = RenderConfig(width=16, height=16, max_depth=2, bsdf="lambert",
                        light_strategy="nee", rr_start_depth=99,
                        jitter="center", sort_secondary=False)
-    r = Renderer(sc, cfg, accel="tiled", use_pallas=False, dynamic=dyn,
+    r = Renderer(sc, cfg, accel="tiled", interpret=True, dynamic=dyn,
                  donate=False)
     st = r.init_state(0)
     st, _ = r.render_frame(st, cam)

@@ -143,10 +143,10 @@ def test_gradient_through_disney():
 
 
 def test_gradient_through_production_tiled_pallas():
-    """VERDICT r3 #3: jax.grad through the PRODUCTION intersector (tiled +
-    Pallas visit kernel; interpret mode on CPU, compiled on TPU). The r3 tree
-    crashed here with NotImplementedError from _pallas_call_jvp_rule because
-    t_max carried a live tangent into the kernel."""
+    """jax.grad through the PRODUCTION intersector (tiled + Pallas visit
+    kernel, interpret mode on the CPU). `pallas_call` has no JVP rule: a live
+    tangent on t_max reaching the kernel raised NotImplementedError before
+    the kernel's custom_jvp guard."""
     from lumenrenderer_tpu.accel import tiled
     from lumenrenderer_tpu.accel.stream import build_clusters
 
@@ -154,7 +154,7 @@ def test_gradient_through_production_tiled_pallas():
     sc, cam = scene.build(), camf(1.0)
     cs = build_clusters(sc.tri_pos, cluster_size=32)
     isect, occl = tiled.tiled_intersectors(
-        cs, max_visits=8, use_pallas=True, decode=False
+        cs, max_visits=8, decode=False, interpret=True
     )
     cfg = RenderConfig(
         width=16, height=16, max_depth=3, bsdf="lambert",

@@ -16,7 +16,7 @@ def test_stats_every_fills_per_stage_map():
     cfg = RenderConfig(width=16, height=16, max_depth=2, bsdf="lambert",
                        light_strategy="nee", rr_start_depth=99,
                        sort_secondary=False)
-    r = Renderer(sc, cfg, accel="tiled", use_pallas=False, stats_every=2)
+    r = Renderer(sc, cfg, accel="tiled", interpret=True, stats_every=2)
     st = r.init_state(0)
     for _ in range(3):
         st, _ = r.render_frame(st, cam)

@@ -110,17 +110,19 @@ def test_train_converges_on_emission():
 
 def test_graft_entry():
     import sys
-    sys.path.insert(0, "/root/repo")
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import __graft_entry__ as g
 
-    fn, args = g.entry()
+    fn, args = g.entry(interpret=True)
     out = jax.jit(fn)(*args)
     assert out.shape == (4096, 3)
     assert np.isfinite(np.asarray(out)).all()
 
 
 def test_progressive_renderer_under_mesh_matches_single():
-    """Round 4 (VERDICT #8): the PROGRESSIVE Renderer — accumulation state,
+    """The PROGRESSIVE Renderer — accumulation state,
     AOVs, frame loop — runs under a device mesh with pixel-sharded state and
     matches the single-device run bit-for-bit-ish."""
     import jax
@@ -140,7 +142,7 @@ def test_progressive_renderer_under_mesh_matches_single():
     spp = 48  # per-shard RNG streams are folded by shard index (by design:
     # chip-local frames), so the comparison is statistical at matched spp
 
-    r_single = Renderer(sc, cfg, accel="tiled", use_pallas=False,
+    r_single = Renderer(sc, cfg, accel="tiled", interpret=True,
                         donate=False)
     st = r_single.init_state(0)
     for _ in range(spp):
@@ -148,7 +150,7 @@ def test_progressive_renderer_under_mesh_matches_single():
     ref = np.asarray(st.accum)
 
     mesh = shard.make_mesh(jax.devices()[:8])
-    r_mesh = Renderer(sc, cfg, accel="tiled", use_pallas=False,
+    r_mesh = Renderer(sc, cfg, accel="tiled", interpret=True,
                       donate=False, mesh=mesh)
     stm = r_mesh.init_state(0)
     for _ in range(spp):
@@ -186,7 +188,7 @@ def test_progressive_renderer_under_mesh_restir():
     rcfg = RestirConfig(num_bags=4, bag_size=16, candidates=4,
                         spatial_samples=2, spatial_iterations=1)
     mesh = shard.make_mesh(jax.devices()[:8])
-    r = Renderer(sc, cfg, accel="tiled", use_pallas=False, donate=False,
+    r = Renderer(sc, cfg, accel="tiled", interpret=True, donate=False,
                  restir_config=rcfg, mesh=mesh)
     st = r.init_state(0)
     for _ in range(2):
@@ -205,7 +207,7 @@ def test_distributed_initialize_noop_single_process():
 
 
 def test_restir_spatial_halo_fixes_seam_bias():
-    """Sharded spatial reuse with halo exchange (round 5, VERDICT #10):
+    """Sharded spatial reuse with halo exchange:
     per-row reservoir statistics at shard-seam rows match the full-grid
     single-device pass, while the clamped (no-halo) variant is measurably
     biased there. Signal: reservoir w_out ramps with GLOBAL row, so a
@@ -213,7 +215,6 @@ def test_restir_spatial_halo_fixes_seam_bias():
     ≙ spatial reuse radius 30px over one unpartitioned screen,
     ReSTIRKernels.cu:745-980."""
     import types
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
     from lumenrenderer_tpu.restir import di
@@ -256,10 +257,10 @@ def test_restir_spatial_halo_fixes_seam_bias():
                 halo=(shard.TILE_AXIS, NSH) if halo else None)
         sh = P(shard.TILE_AXIS)
         rspec = jax.tree_util.tree_map(lambda _: sh, res)
-        return shard_map(
+        return jax.shard_map(
             f, mesh=mesh,
             in_specs=(sh, sh, sh, sh, rspec), out_specs=rspec,
-            check_rep=False,
+            check_vma=False,
         )(sd.position, sd.normal, sd.base_color, hit, res)
 
     halo_out = sharded(True)

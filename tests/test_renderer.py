@@ -13,7 +13,7 @@ def small_renderer(accel="bvh", **kw):
     scene, camf = presets.cornell_box()
     sc, cam = scene.build(), camf(1.0)
     cfg = RenderConfig(width=24, height=24, max_depth=3, bsdf="lambert", **kw)
-    return Renderer(sc, cfg, accel=accel, donate=False), cam
+    return Renderer(sc, cfg, accel=accel, donate=False, interpret=True), cam
 
 
 def test_progressive_accumulation_reduces_variance():
@@ -116,7 +116,7 @@ def test_blend_resets_on_camera_move():
     cfg = RenderConfig(width=16, height=16, max_depth=2, bsdf="lambert",
                        light_strategy="nee", rr_start_depth=99,
                        sort_secondary=False)
-    r = Renderer(sc, cfg, accel="tiled", use_pallas=False, donate=False)
+    r = Renderer(sc, cfg, accel="tiled", interpret=True, donate=False)
     cam = camf(1.0)
     st = r.init_state(0)
     st, _ = r.render_frame(st, cam)
@@ -126,7 +126,7 @@ def test_blend_resets_on_camera_move():
                           fov_y_deg=60.0)
     st, _ = r.render_frame(st, cam2)
     assert int(st.blend_count) == 1          # moved -> restarted
-    r2 = Renderer(sc, cfg, accel="tiled", use_pallas=False, donate=False,
+    r2 = Renderer(sc, cfg, accel="tiled", interpret=True, donate=False,
                   reset_on_camera_move=False)
     st2 = r2.init_state(0)
     st2, _ = r2.render_frame(st2, cam)

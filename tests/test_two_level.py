@@ -105,9 +105,9 @@ def test_instanced_render_matches_flattened():
                        light_strategy="nee", sort_secondary=False)
     cam = _camera()
     r_flat = Renderer(sc, cfg, accel="tiled", cluster_size=32,
-                      candidate_dtype="float32")
+                      interpret=True)
     r_inst = Renderer(sc, cfg, accel="two_level", cluster_size=32,
-                      candidate_dtype="float32", builder=b)
+                      builder=b)
     img_a = r_flat.render(cam, spp=4, seed=1)
     img_b = r_inst.render(cam, spp=4, seed=1)
     # identical RNG + geometry: images differ only by co-near winner ties
@@ -148,7 +148,7 @@ def test_dynamic_instance_move_via_tlas():
                        light_strategy="nee", sort_secondary=False)
     cam = _camera()
     r = Renderer(sc, cfg, accel="two_level", cluster_size=32,
-                 candidate_dtype="float32", builder=b, dynamic=dyn)
+                 builder=b, dynamic=dyn)
     st = r.init_state(0)
     st, _ = r.render_frame(st, cam)
     img0 = np.asarray(st.accum).copy()
@@ -166,7 +166,7 @@ def test_dynamic_instance_move_via_tlas():
                  np.float32) @ b2.instances[0].transform)
     sc2 = b2.build()
     r2 = Renderer(sc2, cfg, accel="two_level", cluster_size=32,
-                  candidate_dtype="float32", builder=b2)
+                  builder=b2)
     st2 = r2.init_state(0)
     st2, _ = r2.render_frame(st2, cam)
     img2 = np.asarray(st2.accum)
